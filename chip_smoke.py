@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``openmeasure_torch``) on one card.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``openmeasure_torch/csrc``, holds
+each kernel against its plain PyTorch version on the card, drives the SPR
+soft-sensing path through its user entry points — ``spr_end_to_end`` at the
+flagship size (165,258 × 41 synthetic flame snapshots, r = 14) and at the
+3D size (1,723,599 × 45, r = 14, svd_width = 28), and the class API
+``SPR.fit → optimal_placement → train → predict → reconstruct`` at the
+flagship size — checks each reconstruction's NRMSE, shows by the launch
+counters that each path ran through the kernels, and times the kernels and
+the pipeline with CUDA events.
+
+Every failed check raises, and the script exits non-zero without its final
+line.  The last three lines are the card's name and power limit (as
+``nvidia-smi`` prints them), the ``kernels`` JSON record, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
+directory that does not hold the ``openmeasure_torch`` package, it exits 1
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+FLAGSHIP = dict(n_features=9, r=14)
+CUBE = dict(n_cells=191511, n_features=9, m_train=45, m_test=4, seed=1)
+NRMSE_FLAGSHIP_MAX = 5e-6
+NRMSE_3D_MAX = 1e-5
+# fp32 near-tie: two candidates whose float64 deflated norms² differ by
+# less than this fraction of the largest initial column norm² are within
+# fp32 round-off of the kernel's k-step downdate
+NEAR_TIE_REL = 1e-5
+# final deflated norms² of kernel and plain version agree to this fraction
+# of the largest initial column norm² (fp32 downdate, k + 1 passes)
+NORMS_REL_TOL = 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    if not (ROOT / "openmeasure_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the openmeasure_torch package is not beside "
+              f"{Path(__file__).name}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+
+    import numpy as np
+    import openmeasure_torch  # noqa: F401  (pins full-fp32 matmuls)
+    from openmeasure_torch import SPR, _build
+    from openmeasure_torch.core import scaling
+    from openmeasure_torch.datasets.synthetic import make_flame_dataset
+    from openmeasure_torch.linalg import qrcp as plain
+    from openmeasure_torch.linalg import qrcp_cuda as kern
+    from openmeasure_torch.linalg import svd
+    from openmeasure_torch.pipelines import spr_end_to_end
+    from openmeasure_torch.utils.metrics import nrmse
+
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev_name = torch.cuda.get_device_name(0)
+    log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
+        f"| {dev_name}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are enabled")
+
+    # ---- build every kernel from the checkout's sources ----------------
+    t0 = time.perf_counter()
+    names = _build.sources()
+    for name in names:
+        _build.load_library(name)
+    log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        for line in _build.build_log(name).splitlines():
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Compiling entry")):
+                log(f"  ptxas[{name}]: {line.strip()}")
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+
+    def kernel_vs_plain(A, k, s):
+        """Kernel and plain version on the same panel: (pivots equal?,
+        kernel pivots, plain pivots, max |Δ final norms²|, max norm0²)."""
+        pk, nk = kern._launch(A, k, s)
+        As = A * s[:, None] if s is not None else A
+        pp, npl = plain._sweep(As, k)
+        sync()
+        fin = torch.isfinite(nk) & torch.isfinite(npl)
+        err = float(torch.max(torch.abs(nk[fin] - npl[fin])))
+        n0 = float(torch.max(torch.sum(As * As, dim=0)))
+        pk, pp = pk.cpu().numpy(), pp.cpu().numpy()
+        return bool(np.array_equal(pk, pp)), pk, pp, err, n0
+
+    def near_tie_report(A, s, pk, pp, n0):
+        """First differing step and both candidates' float64 deflated
+        norms²; True if it is a near-tie within fp32 round-off."""
+        st = int(np.flatnonzero(pk != pp)[0])
+        As = (A * s[:, None] if s is not None else A).double()
+        if st:
+            Qs, _ = torch.linalg.qr(As[:, torch.as_tensor(pk[:st], device=dev).long()])
+        cand = {}
+        for who, j in (("kernel", int(pk[st])), ("plain", int(pp[st]))):
+            a = As[:, j]
+            d = float(a @ a) - (float(torch.sum((Qs.T @ a) ** 2)) if st else 0.0)
+            cand[who] = (j, d)
+        gap = abs(cand["kernel"][1] - cand["plain"][1])
+        log(f"    first difference at step {st}: kernel picks "
+            f"{cand['kernel'][0]} (deflated norm² {cand['kernel'][1]:.9e}), "
+            f"plain picks {cand['plain'][0]} ({cand['plain'][1]:.9e}); "
+            f"gap/max norm0² = {gap / n0:.3e} (near-tie if ≤ {NEAR_TIE_REL})")
+        return gap <= NEAR_TIE_REL * n0
+
+    # ---- kernel against its plain version on random panels -------------
+    log("phase 1: csrc/qrcp.cu vs plain sweep, random fp32 panels "
+        "(pivots must be equal)")
+    rng = np.random.default_rng(0)
+    # (shape, k); the last panel is tall (r = 8192): the kernel keeps
+    # nothing of size r in shared memory, so it takes any r
+    for shape, k in (((14, 5000), 14), ((8, 20000), 8), ((14, 50000), 14),
+                     ((8192, 2048), 4)):
+        A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+        for scaled in (False, True):
+            s = (torch.as_tensor(np.geomspace(1.0, 1e4, shape[0]),
+                                 dtype=torch.float32, device=dev)
+                 if scaled else None)
+            eq, pk, pp, err, n0 = kernel_vs_plain(A, k, s)
+            log(f"  {shape} k={k} row_scale={scaled}: pivots equal={eq}, "
+                f"max|Δnorms²|/max norm0²={err / n0:.3e}")
+            if not eq:
+                fail(f"kernel pivots {pk.tolist()} != plain {pp.tolist()} "
+                     f"on random panel {shape} row_scale={scaled}")
+            if err > NORMS_REL_TOL * n0:
+                fail(f"final norms disagree: {err:.3e} > {NORMS_REL_TOL} × "
+                     f"{n0:.3e}")
+
+    # ---- data (host numpy from a seed, then one upload) ----------------
+    t0 = time.perf_counter()
+    flag = make_flame_dataset(dtype=np.float32)
+    cube = make_flame_dataset(dtype=np.float32, **CUBE)
+    log(f"data: flagship X_train {flag['X_train'].shape}, 3D X_train "
+        f"{cube['X_train'].shape}, made in {time.perf_counter() - t0:.1f} s")
+
+    # ---- the main path, each entry point with the counter reset --------
+    def counted(fn):
+        kern.qrcp_pivots_cuda.launches = 0
+        out = fn()
+        sync()
+        return out, kern.qrcp_pivots_cuda.launches
+
+    log("phase 2: main path (counters reset before each entry point)")
+    res_f, launches_f = counted(lambda: spr_end_to_end(
+        flag["X_train"], flag["X_test"], **FLAGSHIP))
+    nr_f = float(res_f.nrmse)
+    log(f"  spr_end_to_end flagship: NRMSE {nr_f:.3e} (≤ {NRMSE_FLAGSHIP_MAX})"
+        f", qrcp launches {launches_f}, pivots {res_f.pivots.tolist()}")
+    res_c, launches_c = counted(lambda: spr_end_to_end(
+        cube["X_train"], cube["X_test"], n_features=9, r=14, svd_width=28))
+    nr_c = float(res_c.nrmse)
+    log(f"  spr_end_to_end 3D: NRMSE {nr_c:.3e} (≤ {NRMSE_3D_MAX}), qrcp "
+        f"launches {launches_c}")
+
+    def class_flow():
+        spr = SPR(flag["X_train"], 9, flag["xyz"])
+        spr.fit(select_modes="number", n_modes=14)
+        C = spr.optimal_placement()
+        spr.train(C)
+        Cn = C.cpu().numpy()
+        rows = np.argmax(Cn, axis=1)
+        ys = []
+        for j in range(flag["X_test"].shape[1]):
+            y = np.zeros((14, 3))
+            y[:, 0] = flag["X_test"][rows, j]
+            y[:, 2] = rows // flag["xyz"].shape[0]
+            ys.append(y)
+        ap, _ = spr.predict(ys)
+        return spr.reconstruct(ap)
+
+    xp, launches_k = counted(class_flow)
+    nr_k = float(nrmse(xp, torch.as_tensor(flag["X_test"], device=dev)))
+    log(f"  class API flagship: NRMSE {nr_k:.3e} (≤ {NRMSE_FLAGSHIP_MAX}), "
+        f"qrcp launches {launches_k}")
+    for what, res, shape in (("flagship", res_f.X_rec, flag["X_test"].shape),
+                             ("3D", res_c.X_rec, cube["X_test"].shape),
+                             ("class API", xp, flag["X_test"].shape)):
+        if tuple(res.shape) != shape or not bool(torch.isfinite(res).all()):
+            fail(f"{what} reconstruction is not finite of shape {shape}")
+    if not nr_f <= NRMSE_FLAGSHIP_MAX:
+        fail(f"flagship NRMSE {nr_f:.3e} > {NRMSE_FLAGSHIP_MAX}")
+    if not nr_c <= NRMSE_3D_MAX:
+        fail(f"3D NRMSE {nr_c:.3e} > {NRMSE_3D_MAX}")
+    if not nr_k <= NRMSE_FLAGSHIP_MAX:
+        fail(f"class API NRMSE {nr_k:.3e} > {NRMSE_FLAGSHIP_MAX}")
+    for what, n in (("flagship", launches_f), ("3D", launches_c),
+                    ("class API", launches_k)):
+        if n < 1:
+            fail(f"the {what} path never launched csrc/qrcp.cu")
+
+    # ---- kernel vs plain on the panels the pipeline produces -----------
+    log("phase 3: csrc/qrcp.cu vs plain sweep on the pipeline's B panels")
+
+    def pipeline_panel(X, refine=None, width=None):
+        X = torch.as_tensor(X, device=dev)
+        X0, _, _ = scaling.scale_data(X, 9, "std", 1)
+        B, S, _ = svd.svd_tall(X0, refine=refine, canonicalize=False, rank=14,
+                               width=width, normalize=False)
+        dinv = 1.0 / svd.floored_norms(S[:14], X0.shape[0], X0.dtype)
+        return B, dinv
+
+    panels = {}
+    for tag, X, width, res in (("flagship", flag["X_train"], None, res_f),
+                               ("3d", cube["X_train"], 28, res_c)):
+        B, dinv = pipeline_panel(X, width=width)
+        A = B.T
+        eq, pk, pp, err, n0 = kernel_vs_plain(A, 14, dinv)
+        same_as_pipeline = bool(np.array_equal(pk, res.pivots.cpu().numpy()))
+        log(f"  {tag} B.T {tuple(A.shape)} strides {A.stride()}: pivots "
+            f"equal={eq}, kernel pivots == pipeline's={same_as_pipeline}, "
+            f"max|Δnorms²|={err:.3e} (max norm0² {n0:.3e})")
+        if not eq and not near_tie_report(A, dinv, pk, pp, n0):
+            fail(f"{tag}: kernel and plain pivots differ beyond a near-tie")
+        if eq and err > NORMS_REL_TOL * n0:
+            fail(f"{tag}: final norms disagree: {err:.3e}")
+        panels[tag] = (A, dinv, err)
+
+    # ---- timings --------------------------------------------------------
+    def per_call_ms(fns, reps=20, warmup=3):
+        """Wall time per call of each of ``fns`` (key -> callable), timed in
+        turns (A B B A ...) so that drift on the card hits all of them
+        alike; key -> (median, min, max) ms."""
+        for fn in fns.values():
+            for _ in range(warmup):
+                fn()
+        sync()
+        keys = list(fns)
+        ts = {key: [] for key in keys}
+        for rep in range(reps):
+            for key in (keys if rep % 2 == 0 else keys[::-1]):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fns[key]()
+                b.record()
+                b.synchronize()
+                ts[key].append(a.elapsed_time(b))
+        return {key: (statistics.median(v), min(v), max(v))
+                for key, v in ts.items()}
+
+    def loop_ms(fn, n, warmup=3, rounds=3):
+        for _ in range(warmup):
+            fn()
+        sync()
+        out = []
+        for _ in range(rounds):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                fn()
+            b.record()
+            sync()
+            out.append(a.elapsed_time(b) / n)
+        return statistics.median(out)
+
+    log("phase 4: timings (CUDA events; inputs resident on the card)")
+    Xf = torch.as_tensor(flag["X_train"], device=dev)
+    Tf = torch.as_tensor(flag["X_test"], device=dev)
+    Xc = torch.as_tensor(cube["X_train"], device=dev)
+    Tc = torch.as_tensor(cube["X_test"], device=dev)
+    for tag, X, T, kw in (("flagship", Xf, Tf, {}),
+                          ("3D", Xc, Tc, dict(svd_width=28))):
+        torch.cuda.reset_peak_memory_stats()
+        spr_end_to_end(X, T, **FLAGSHIP, **kw)
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        fns = {refine: (lambda refine=refine: spr_end_to_end(
+            X, T, **FLAGSHIP, refine=refine, **kw)) for refine in (1, 2)}
+        for refine, (med, lo, hi) in per_call_ms(fns).items():
+            log(f"  {tag} spr_end_to_end refine={refine}: NRMSE "
+                f"{float(fns[refine]().nrmse):.3e}, wall per call median "
+                f"{med:.4f} ms (min {lo:.4f}, max {hi:.4f}, 20 calls in "
+                f"turns with the other refine)")
+        log(f"  {tag} max_memory_allocated of one call at the default "
+            f"refine: {peak:.1f} MiB")
+
+    records = []
+    for tag, replaces, launches in (
+            ("flagship", "openmeasure_tpu/linalg/qrcp_pallas.py:66",
+             launches_f + launches_k),
+            ("3d", "openmeasure_tpu/linalg/qrcp_pallas.py:137", launches_c)):
+        A, dinv, err = panels[tag]
+        r, n = A.shape
+        k = 14
+        ms = loop_ms(lambda: kern.qrcp_pivots_cuda(A, k, row_scale=dinv),
+                     n=50 if tag == "flagship" else 10)
+        plain_ms = loop_ms(lambda: plain.qrcp_pivots(A * dinv[:, None], k),
+                           n=5, warmup=1)
+        bytes_ms = (r * n * 4 + r * 4 + k * 4) / HBM_BYTES_PER_S * 1e3
+        ops_ms = (2.0 * r * n * (k + 1) + 2.0 * n * k) / FP32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"  qrcp {tag} {(r, n)}: kernel {ms:.4f} ms per call "
+            f"(1 + 2k = {1 + 2 * k} launches), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms (bytes {bytes_ms:.5f}, ops "
+            f"{ops_ms:.5f}); per-step re-read traffic "
+            f"{(k + 1) * r * n * 4 / 1e9:.3f} GB")
+        records.append({
+            "name": f"qrcp_pivots_cuda[{tag}]", "route": "cuda",
+            "source": "openmeasure_torch/csrc/qrcp.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None})
+
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

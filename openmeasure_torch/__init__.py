@@ -1,0 +1,52 @@
+"""openmeasure-torch: the PyTorch/CUDA port of openmeasure-tpu.
+
+The port runs the soft-sensing flow on an NVIDIA Hopper card: feature-block
+scaling, a Gram-route truncated SVD, greedy column-pivoted QR sensor
+placement (a hand-written CUDA kernel, ``csrc/qrcp.cu``) and the gappy-POD
+reconstruction.  Module names, public function names and array layouts
+follow ``openmeasure_tpu`` so each piece has an obvious counterpart.
+
+    from openmeasure_torch import ROM, SPR
+    from openmeasure_torch.pipelines import spr_end_to_end
+
+Every entry point takes ``device=None``, which means ``"cuda"``; with no
+card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run
+the plain PyTorch paths on the host.
+"""
+
+import torch as _torch
+
+# Full-fp32 matmuls: a TF32 product keeps ~3 decimal digits, which alone
+# would cost orders of magnitude of reconstruction NRMSE (the JAX package
+# pins "highest" for the same reason).  cuDNN is pinned too so no fp32
+# contraction anywhere in the process silently drops to TF32.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")
+
+from .rom.rom import ROM  # noqa: E402
+from .sensing.spr import SPR  # noqa: E402
+
+__all__ = ["ROM", "SPR"]
+__version__ = "0.1.0"
+
+# Names of the JAX package's top level that later slices of the port bring
+# over, each with the ROADMAP.md §A item that ports it.
+_NOT_YET_PORTED = {
+    "GPR": "A.9", "PIGPR": "A.9",
+    "CoKriging": "A.10", "MultiFiCoKriging": "A.10",
+    "GPRSensor": "A.10", "CoKrigingSensor": "A.10",
+    "SoftSensor": "A.8",
+    "ShallowDecoder": "A.11", "DecoderSensor": "A.11",
+    "DMD": "A.13", "DynamicSensor": "A.13",
+    "StreamingROM": "A.14", "StreamingSPR": "A.14", "StreamingGPR": "A.14",
+    "StreamingPIGPR": "A.14", "StreamingDMD": "A.14",
+}
+
+
+def __getattr__(name):
+    if name in _NOT_YET_PORTED:
+        raise AttributeError(
+            f"openmeasure_torch.{name} is not ported yet "
+            f"(ROADMAP.md §A item {_NOT_YET_PORTED[name]}).")
+    raise AttributeError(f"module 'openmeasure_torch' has no attribute {name!r}")

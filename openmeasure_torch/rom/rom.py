@@ -1,0 +1,228 @@
+"""Reduced-order-model core: the ``ROM`` class (port of
+``openmeasure_tpu/rom/rom.py``, the slice the SPR soft-sensing flow uses).
+
+Public attributes mirror the JAX package: ``X_cnt, X_scl, X0, Ur, Ar, Vr,
+Sigma_r, r`` — torch tensors on the model's device.  ``X`` keeps whatever
+the caller passed (numpy array or tensor).
+
+Not ported in this slice, each raising ``NotImplementedError`` naming its
+ROADMAP.md item: ``CPOD`` and ``adaptive_sampling`` (A.7, they need the
+ADMM box-QP solver), ``update_basis`` (A.14, incremental SVD).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..core import scaling as _scaling
+from ..core.device import DeviceLike, as_tensor, resolve_device, to_numpy
+from ..linalg import svd as _svd
+
+
+def apply_sampling(sampling, M: torch.Tensor) -> torch.Tensor:
+    """Apply a measurement/sampling operator to an (n, ...) tensor.
+
+    ``sampling`` may be dense (numpy array or tensor) or a
+    ``scipy.sparse`` matrix; the sparse product runs on the host, as in the
+    JAX package, and the result lands on M's device."""
+    if sp.issparse(sampling):
+        return as_tensor(sampling.dot(to_numpy(M)), M.device)
+    S = as_tensor(sampling, M.device)
+    if S.dtype != M.dtype:
+        S = S.to(M.dtype)
+    return S @ M
+
+
+def scale_measurement_values(y, cnt_vector, scl_full, n_points):
+    """Value-column measurement scaling (host numpy): each measurement's
+    scale is the feature-block scalar ``X_scl[feature_id * n_points]``, its
+    centering the precomputed ``C @ X_cnt``.  Returns ``(scaled_values,
+    scl_vector)``."""
+    y = np.asarray(y)
+    scl_vector = np.asarray(scl_full)[y[:, 2].astype(int) * n_points]
+    return (y[:, 0] - cnt_vector) / scl_vector, scl_vector
+
+
+class ROM:
+    """Reduced-order model over a feature-blocked snapshot matrix.
+
+    X : numpy array or tensor (n, m), n = n_features * n_points
+    n_features : int
+    xyz : array (n_points, 3)
+    device : where the model's tensors live (``None`` means the card)
+    """
+
+    def __init__(self, X, n_features, xyz, device: DeviceLike = None):
+        if not isinstance(X, (np.ndarray, torch.Tensor)):
+            raise TypeError("The matrix X is not a numpy array.")
+        if type(n_features) is not int:
+            # `type(...) is not int`: bool must NOT pass as a feature count
+            raise TypeError("The parameter n_features is not an integer.")
+        self.device = resolve_device(device)
+        self.X = X
+        self.n_features = n_features
+        self.xyz = xyz
+        n = X.shape[0]
+        self.n_points = n // n_features
+        if n % n_features != 0:
+            raise Exception("The number of rows of X is not a multiple of n_features")
+
+    def _t(self, x) -> torch.Tensor:
+        return as_tensor(x, self.device)
+
+    # ------------------------------------------------------------------ #
+    # Scaling
+    # ------------------------------------------------------------------ #
+
+    def scale_data(self, scale_type: str = "std", axis_cnt: Optional[int] = 1):
+        X = self._t(self.X)
+        X0, X_cnt, X_scl = _scaling.scale_data(X, self.n_features,
+                                               scale_type, axis_cnt)
+        # Dead-block guard (the JAX package's documented deviation from the
+        # reference): a constant feature block gives a zero or round-off
+        # scale under the spread-based types, and value-based types can hit
+        # exact zeros; dividing by it silently poisons the whole fit, so
+        # raise with the offending feature ids.  Constancy is tested
+        # directly (block max == min), since a constant block's statistic
+        # can land at eps-level instead of exact zero.
+        scl_blocks = to_numpy(X_scl[:: self.n_points, 0])
+        bad = ~(np.isfinite(scl_blocks) & (scl_blocks != 0))
+        if scale_type in ("std", "pareto", "range", "variance",
+                          "vast", "vast_2", "vast_3", "vast_4"):
+            Xb = X.reshape(self.n_features, self.n_points, -1)
+            spread = to_numpy(torch.amax(Xb, dim=(1, 2))
+                              - torch.amin(Xb, dim=(1, 2)))
+            bad |= spread == 0
+        bad_idx = np.flatnonzero(bad)
+        if bad_idx.size:
+            raise ValueError(
+                f"scale_data(scale_type={scale_type!r}): feature block(s) "
+                f"{bad_idx.tolist()} are constant (dead channel) or have "
+                f"a zero/non-finite scale factor "
+                f"(values {scl_blocks[bad_idx].tolist()}). Dividing by it "
+                "would silently corrupt the whole fit; drop or repair "
+                "those features, or use scale_type='none'.")
+        self.X_cnt = X_cnt
+        self.X_scl = X_scl
+        # new statistics invalidate SPR's cached C @ X_cnt and host copy of
+        # the scales
+        self._cnt_vector_cache = None
+        self._scl_vector_cache = None
+        return X0
+
+    def scale_limits(self, limits: Sequence):
+        """``limits = [mins, maxs]`` with per-feature ``(n_features,)``
+        arrays; a scalar broadcasts to every feature."""
+        def as_feature_vec(b, name):
+            arr = torch.atleast_1d(as_tensor(b, self.device,
+                                             dtype=self.X_cnt.dtype))
+            if arr.numel() == 1:
+                return arr.reshape(()).expand(self.n_features)
+            if tuple(arr.shape) != (self.n_features,):
+                raise ValueError(
+                    f"limits {name} must be a scalar or an "
+                    f"(n_features,) = ({self.n_features},) array; got "
+                    f"shape {tuple(arr.shape)}.")
+            return arr
+        lo, hi = _scaling.scale_limits(
+            as_feature_vec(limits[0], "min"),
+            as_feature_vec(limits[1], "max"),
+            self.X_cnt, self.X_scl, self.n_features)
+        return [lo, hi]
+
+    def unscale_data(self, x0, sampling=None):
+        x0 = self._t(x0)
+        if sampling is None:
+            return _scaling.unscale_data(x0, self.X_cnt, self.X_scl)
+        scl = apply_sampling(sampling, self.X_scl[:, 0])
+        cnt = apply_sampling(sampling, self.X_cnt[:, 0])
+        if x0.ndim == 1:
+            return scl * x0 + cnt
+        return scl[:, None] * x0 + cnt[:, None]
+
+    # ------------------------------------------------------------------ #
+    # Decomposition
+    # ------------------------------------------------------------------ #
+
+    def decomposition(self, X0, select_modes: str = "variance", n_modes=99):
+        """Thin POD of the scaled snapshots.  Returns (Ur, Ar,
+        exp_variance[:r]); ``A = (diag(S) Vt)ᵀ``."""
+        X0 = self._t(X0)
+        U, S, Vt = _svd.svd_tall_safe(X0)
+        A = (S[:, None] * Vt).T
+        exp_variance = _svd.explained_variance(S)
+        Ur, Ar = self.reduction(U, A, exp_variance, select_modes, n_modes)
+        r = Ar.shape[1]
+        return Ur, Ar, exp_variance[:r]
+
+    def reduction(self, U, A, exp_variance, select_modes, n_modes):
+        r = _svd.select_rank(exp_variance, select_modes, n_modes, A.shape[1])
+        self.r = r
+        return self._t(U)[:, :r], self._t(A)[:, :r]
+
+    # ------------------------------------------------------------------ #
+    # Fit / reconstruct
+    # ------------------------------------------------------------------ #
+
+    def fit(self, scale_type: str = "std", axis_cnt: Optional[int] = 1,
+            select_modes: str = "variance", n_modes=99, basis=None,
+            config=None):
+        """``config`` (:class:`openmeasure_torch.core.config.FitConfig`)
+        overrides the individual kwargs when given; ``basis=(Ur, Ar)``
+        skips the decomposition."""
+        if config is not None:
+            scale_type = config.scale_type
+            axis_cnt = config.axis_cnt
+            select_modes = config.select_modes
+            n_modes = config.n_modes
+        self.scale_type = scale_type
+        self.X0 = self.scale_data(scale_type, axis_cnt)
+        if basis is None:
+            Ur, Ar, _ = self.decomposition(self.X0, select_modes, n_modes)
+        else:
+            Ur, Ar = self._t(basis[0]), self._t(basis[1])
+
+        self.Ur = Ur
+        self.Ar = Ar
+        self.r = Ar.shape[1]
+
+        Sigma_r = torch.linalg.vector_norm(Ar, dim=0)
+        self.Vr = Ar / Sigma_r[None, :]
+        self.Sigma_r = Sigma_r
+        self._invalidate_trained_state()
+
+    def _invalidate_trained_state(self):
+        """Hook run at the end of every (re)fit: subclasses holding trained
+        state derived from the basis drop it here."""
+
+    def reconstruct(self, Ar, sampling=None):
+        """``X_rec = Ur @ Arᵀ`` (optionally sampled), unscaled
+        column-wise."""
+        Ar = self._t(Ar)
+        if Ar.ndim < 2:
+            Ar = Ar[None, :]
+        if sampling is not None:
+            SUr = apply_sampling(sampling, self.Ur)
+            return self.unscale_data(SUr @ Ar.T, sampling)
+        return _scaling.unscale_data(self.Ur @ Ar.T, self.X_cnt, self.X_scl)
+
+    # ------------------------------------------------------------------ #
+    # Later slices
+    # ------------------------------------------------------------------ #
+
+    def update_basis(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ROM.update_basis (incremental SVD) is not ported yet "
+            "(ROADMAP.md §A item 14).")
+
+    def CPOD(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ROM.CPOD (ADMM box-QP) is not ported yet (ROADMAP.md §A item 7).")
+
+    def adaptive_sampling(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ROM.adaptive_sampling is not ported yet (ROADMAP.md §A item 7).")

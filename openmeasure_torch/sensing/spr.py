@@ -1,0 +1,224 @@
+"""Sparse Placement for Reconstruction (port of
+``openmeasure_tpu/sensing/spr.py``, the QR placement and OLS solve).
+
+* ``optimal_placement('qr')`` → greedy column-pivoted QR of Urᵀ, on the card
+  by the CUDA kernel (``linalg.qrcp_cuda``);
+* ``predict`` → the weighted gappy-POD least squares, a batched float64
+  pinv on the HOST.  Porting trap 9: that is the JAX package's design (the
+  (s, r) systems are tiny but can be ill-conditioned, cond ~1e4-1e5 on
+  flame-scale placements, where an fp32 device pinv costs ~5e-4 field
+  NRMSE), not a device fallback; it is kept exactly.
+
+A σ=0 entry inside an otherwise-weighted measurement vector receives the
+largest finite weight of that vector (the JAX package's documented
+deviation from the reference's literal 1/0).
+
+Not ported in this slice, each raising ``NotImplementedError`` naming its
+ROADMAP.md item: ``method='COLS'`` and ``constraints`` (A.7), the
+``gem``/``dg``/``vdg`` placements (A.11), ``update_basis`` (A.14).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.device import as_tensor, to_numpy
+from ..linalg import qrcp as _qrcp
+from ..linalg.qrcp_cuda import qrcp_pivots_auto
+from ..rom.rom import ROM, apply_sampling, scale_measurement_values
+
+
+class SPR(ROM):
+    """Sparse placement + gappy-POD reconstruction (constructor as
+    :class:`ROM`: ``SPR(X, n_features, xyz, device=None)``)."""
+
+    # ------------------------------------------------------------------ #
+    # Measurement scaling
+    # ------------------------------------------------------------------ #
+
+    def scale_vector(self, y):
+        """Scale a measurement vector y (s, 3) = [value, σ, feature-id] with
+        the training statistics.  Returns y0 (s, 2), float64 on the host.
+
+        ``C @ X_cnt`` is constant once trained; :meth:`train` caches it."""
+        y = np.asarray(y)
+        cnt_vector = getattr(self, "_cnt_vector_cache", None)
+        if cnt_vector is None:
+            cnt_vector = to_numpy(apply_sampling(self.C, self.X_cnt[:, 0]))
+            self._cnt_vector_cache = cnt_vector
+        scl_full = getattr(self, "_scl_vector_cache", None)
+        if scl_full is None:
+            scl_full = to_numpy(self.X_scl[:, 0])
+            self._scl_vector_cache = scl_full
+        vals, scl_vector = scale_measurement_values(
+            y, cnt_vector, scl_full, self.n_points)
+
+        # float64: the host-f64 solve downstream exists to avoid fp32 error
+        y0 = np.zeros((y.shape[0], 2), dtype=np.float64)
+        y0[:, 0] = vals
+        y0[:, 1] = y[:, 1] / scl_vector
+
+        self.cnt_vector = cnt_vector
+        self.scl_vector = scl_vector
+        return y0
+
+    # ------------------------------------------------------------------ #
+    # Placement
+    # ------------------------------------------------------------------ #
+
+    def _invalidate_trained_state(self):
+        """Refit hook: a new basis orphans the trained ``Theta``."""
+        if getattr(self, "Theta", None) is not None:
+            del self.Theta
+            self._needs_retrain = True
+
+    def optimal_placement(self, calc_type: str = "qr", n_sensors: int = 10,
+                          mask=None, d_min: float = 0.0,
+                          verbose: bool = False, config=None):
+        """The one-hot measurement matrix C (s, n), a tensor on the model's
+        device.
+
+        ``calc_type='qr'``: first-r column pivots of Urᵀ (s = r).  A region
+        ``mask`` (n,) zeroes the excluded rows of Ur destructively, as in
+        the reference.  ``config``
+        (:class:`openmeasure_torch.core.config.PlacementConfig`) overrides
+        calc_type/n_sensors/d_min/verbose when given."""
+        if config is not None:
+            calc_type = config.calc_type
+            n_sensors = config.n_sensors
+            d_min = config.d_min
+            verbose = config.verbose
+        if calc_type != "qr":
+            if calc_type in ("gem", "dg", "vdg"):
+                raise NotImplementedError(
+                    f"optimal_placement(calc_type={calc_type!r}) is not "
+                    "ported yet (ROADMAP.md §A item 11).")
+            raise NotImplementedError(
+                "The sensor selection method has not been implemented yet")
+        n = self.X.shape[0]
+        if mask is not None:
+            keep = as_tensor(np.asarray(mask, dtype=bool), self.device)
+            self.Ur = torch.where(keep[:, None], self.Ur,
+                                  torch.zeros((), dtype=self.Ur.dtype,
+                                              device=self.device))
+        # Ur.T is an (r, n) view of the (n, r) basis: the kernel reads it
+        # through its strides, no copy
+        pivots = qrcp_pivots_auto(self.Ur.T, self.r)
+        return _qrcp.pivots_to_onehot(pivots, n).to(self.Ur.dtype)
+
+    # ------------------------------------------------------------------ #
+    # Train
+    # ------------------------------------------------------------------ #
+
+    def train(self, C, is_Theta: bool = False, limits=None,
+              method: str = "OLS", cond: bool = False, verbose: bool = False,
+              constraints=None):
+        """Store the measurement operator ``C`` (s, n) — dense (numpy or
+        tensor) or ``scipy.sparse`` — and ``Theta = C @ Ur``; with
+        ``is_Theta=True``, ``C`` is Theta itself.  ``cond=True`` stores the
+        condition number of Theta (host f64 SVD) as ``self.k``."""
+        if method == "COLS" or constraints is not None:
+            raise NotImplementedError(
+                "method='COLS' and constraints (ADMM box-constrained least "
+                "squares) are not ported yet (ROADMAP.md §A item 7).")
+        if (C.shape[1] != self.X.shape[0]) and not is_Theta:
+            raise ValueError("The number of columns of C does not match the"
+                             " number of rows of X.")
+        if not is_Theta:
+            self.C = C
+            Theta = apply_sampling(C, self.Ur)
+            # constant across predicts (see scale_vector)
+            self._cnt_vector_cache = to_numpy(
+                apply_sampling(C, self.X_cnt[:, 0]))
+        else:
+            Theta = self._t(C)
+            # a previous train(C) must not survive: scale_vector would
+            # center this Theta's measurements with the old C's sensors
+            self.C = None
+            self._cnt_vector_cache = None
+
+        if Theta.shape[1] != self.Ur.shape[1]:
+            raise ValueError("The number of columns of Theta does not match"
+                             " the number of columns of Ur.")
+
+        self.Theta = Theta
+        self._needs_retrain = False
+        self.limits = limits
+        self.method = method
+        self.verbose = verbose
+
+        if cond:
+            # host f64 SVD of Theta directly: cond(pinv(Theta)) == cond(Theta)
+            S_theta = np.linalg.svd(to_numpy(Theta).astype(np.float64),
+                                    compute_uv=False)
+            self.k = float(S_theta[0] / S_theta[-1])
+
+    def update_basis(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SPR.update_basis (incremental SVD) is not ported yet "
+            "(ROADMAP.md §A item 14).")
+
+    def fit_predict(self, C, y, scale_type: str = "std",
+                    select_modes: str = "variance", n_modes=99, **train_kw):
+        """Convenience: fit + train + predict in one call."""
+        self.fit(scale_type=scale_type, select_modes=select_modes,
+                 n_modes=n_modes)
+        self.train(C, **train_kw)
+        return self.predict(y)
+
+    # ------------------------------------------------------------------ #
+    # Predict
+    # ------------------------------------------------------------------ #
+
+    def predict(self, y):
+        """Gappy-POD solve for one measurement vector (s, 3) or a list.
+
+        Returns (Ar, Ar_sigma), each (n_vectors, r), tensors on the model's
+        device in Theta's dtype.  OLS: weighted pinv, host float64."""
+        if not hasattr(self, "Theta"):
+            if getattr(self, "_needs_retrain", False):
+                raise AttributeError(
+                    "the trained sensor was invalidated (the basis "
+                    "changed after train(): a refit) — call train() again; "
+                    "the fitted basis is intact.")
+            raise AttributeError("The function fit has to be called "
+                                 "before calling predict.")
+        if isinstance(y, (np.ndarray, torch.Tensor)):
+            y = [y]
+        y = [to_numpy(yi) for yi in y]
+        for yi in y:
+            if self.Theta.shape[0] != yi.shape[0]:
+                raise ValueError("The number of rows of Theta does not match"
+                                 " the number of rows of y.")
+            if yi.shape[1] != 3:
+                raise ValueError("The y array has the wrong number of columns."
+                                 " y has to have dimensions (s,3).")
+        if self.method != "OLS":
+            raise NotImplementedError(
+                "The prediction method selected has not been implemented yet")
+
+        n_vec = len(y)
+        y0_np = np.stack([self.scale_vector(yi) for yi in y])
+        has_sigma = np.array([bool(np.any(yi[:, 1])) for yi in y])
+        s = y0_np.shape[1]
+        # W = diag(1/σ); an exact measurement (σ=0) inside a weighted
+        # vector gets the LARGEST finite weight of its vector
+        sig_np = y0_np[:, :, 1].astype(np.float64)
+        inv_sigma = np.where(sig_np > 0,
+                             1.0 / np.where(sig_np > 0, sig_np, 1.0), 0.0)
+        w_max = inv_sigma.max(axis=1, keepdims=True)
+        w_weighted = np.where(sig_np > 0, inv_sigma, w_max)
+        w_np = np.where(has_sigma[:, None], w_weighted, np.ones((n_vec, s)))
+
+        # porting trap 9: the pinv runs on the HOST in float64, by design
+        Th64 = to_numpy(self.Theta).astype(np.float64)
+        WT = Th64[None, :, :] * w_np[:, :, None]        # (n_vec, s, r)
+        pinvs = np.linalg.pinv(WT)                      # batched f64 pinv
+        ar_np = np.einsum("vrs,vs->vr", pinvs, w_np * y0_np[:, :, 0])
+        sig_prop = np.abs(np.einsum("vrs,vs->vr", pinvs, sig_np))
+        ar_sigma_np = np.where(has_sigma[:, None], sig_prop, 0.0)
+        dtype = self.Theta.dtype
+        self.admm_info = None            # no ADMM ran for this predict
+        return (as_tensor(ar_np, self.device, dtype=dtype),
+                as_tensor(ar_sigma_np, self.device, dtype=dtype))

@@ -1,0 +1,59 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points default to the card and refuse to run without one."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "openmeasure_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "profile_torch.py"]
+# an import statement (or a dynamic import) of jax or the JAX package
+_IMPORT = re.compile(
+    r"^\s*(import\s+(jax|openmeasure_tpu)\b|from\s+(jax|openmeasure_tpu)\b"
+    r"[.\w]*\s+import\b)|(import_module|__import__)\(\s*['\"](jax|openmeasure_tpu)",
+    re.MULTILINE)
+
+
+def test_import_without_jax_in_a_fresh_process():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"          # any `import jax` now fails
+        "import openmeasure_torch, openmeasure_torch.pipelines\n"
+        "import openmeasure_torch.utils.convert, openmeasure_torch.utils.metrics\n"
+        "import openmeasure_torch.linalg.qrcp_cuda, openmeasure_torch._build\n"
+        "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
+        "       or m.startswith(('jax.', 'openmeasure_tpu.'))]\n"
+        "assert sys.modules['jax'] is None and not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import_in_port_sources(path):
+    assert path.exists(), path
+    hits = _IMPORT.findall(path.read_text())
+    assert not hits, f"{path.name} imports {hits}"
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None legitimately runs there")
+    from openmeasure_torch import SPR
+    from openmeasure_torch.pipelines import spr_end_to_end
+    X = np.random.default_rng(0).standard_normal((40, 6)) + 5.0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spr_end_to_end(X, X[:, :2], n_features=2, r=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SPR(X, 2, np.zeros((20, 3)))

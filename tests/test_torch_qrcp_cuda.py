@@ -1,0 +1,128 @@
+"""The QRCP CUDA kernel (``openmeasure_torch/csrc/qrcp.cu``) against its
+plain version on the card.
+
+Every test here needs a CUDA card and skips without one; this file imports
+neither JAX nor the JAX package, so on a machine with a card it runs as::
+
+    python -m pytest tests/test_torch_qrcp_cuda.py --noconftest -q
+
+Tolerance: pivots EQUAL, and the final deflated norms² equal too — the
+kernel and the plain sweep sum in the same order from separately rounded
+products (see the note at the top of the CUDA source), so they agree bit
+for bit in fp32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from openmeasure_torch.linalg import qrcp as TQ
+from openmeasure_torch.linalg import qrcp_cuda as TQC
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(A, k, s=None):
+    pk, nk = TQC._launch(A, k, s)
+    pp, npl = TQ._sweep(A * s[:, None] if s is not None else A, k)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(pk.cpu().numpy(), pp.cpu().numpy())
+    np.testing.assert_array_equal(nk.cpu().numpy(), npl.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("shape", [(14, 5000), (8, 20000), (1, 300),
+                                   (5, 1001)])
+def test_kernel_matches_plain(card, shape, scaled):
+    """Random fp32 panels, ragged widths included, with and without
+    decades-spread row scales (like 1/σ of an ill-conditioned basis)."""
+    rng = np.random.default_rng(8)
+    A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=card)
+    r = shape[0]
+    s = (torch.as_tensor(np.geomspace(1.0, 1e4, r), dtype=torch.float32,
+                         device=card) if scaled else None)
+    _kernel_vs_plain(A, min(r, 14), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [4097, 8192])
+def test_kernel_takes_tall_panels(card, r):
+    """Panels with more rows than q and the row scale would fit in a
+    launch's default 48 KB of shared memory: the dispatch sends them to
+    the kernel, which holds nothing of size r in shared memory."""
+    rng = np.random.default_rng(r)
+    A = torch.as_tensor(rng.standard_normal((r, 1500)), dtype=torch.float32,
+                        device=card)
+    s = torch.as_tensor(np.geomspace(1.0, 1e4, r), dtype=torch.float32,
+                        device=card)
+    _kernel_vs_plain(A, 4, s)
+    before = TQC.qrcp_pivots_cuda.launches
+    TQC.qrcp_pivots_auto(A, 4, row_scale=s)
+    assert TQC.qrcp_pivots_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_views(card):
+    """B.T of a row-major (n, r) panel (the main path), a column slice of
+    it (the class API's Ur.T), and a column window of an (r, n) panel are
+    read through their strides, with no copy."""
+    rng = np.random.default_rng(9)
+    B = torch.as_tensor(rng.standard_normal((30000, 14)),
+                        dtype=torch.float32, device=card)
+    _kernel_vs_plain(B.T, 14)
+    _kernel_vs_plain(B[:, :9].T, 9)
+    P = torch.as_tensor(rng.standard_normal((6, 9000)), dtype=torch.float32,
+                        device=card)
+    _kernel_vs_plain(P[:, 1000:8000], 6)
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_what_the_kernel_does_not_take(card):
+    A = torch.zeros((4, 100), dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        TQC.qrcp_pivots_cuda(A.double(), 4)
+    with pytest.raises(ValueError, match="k <="):
+        TQC.qrcp_pivots_cuda(A, 129)
+    with pytest.raises(ValueError, match="k <="):
+        TQC.qrcp_pivots_cuda(A[:, :3], 4)
+    with pytest.raises(ValueError, match="non-overlapping"):
+        TQC.qrcp_pivots_cuda(A[:, :1].expand(4, 100), 4)
+
+
+@pytest.mark.cuda
+def test_auto_dispatch_on_card(card):
+    """fp32 with k ≤ 128 launches the kernel; float64, or k > 128, takes
+    the plain sweep on the card, as the JAX package sends such panels to
+    its jnp sweep."""
+    rng = np.random.default_rng(10)
+    A = torch.as_tensor(rng.standard_normal((130, 400)), device=card)
+    before = TQC.qrcp_pivots_cuda.launches
+    p64 = TQC.qrcp_pivots_auto(A, 12)
+    p130 = TQC.qrcp_pivots_auto(A.float(), 130)
+    assert TQC.qrcp_pivots_cuda.launches == before
+    assert p64.device.type == "cuda" and len(set(p130.tolist())) == 130
+    p32 = TQC.qrcp_pivots_auto(A.float(), 12)
+    assert TQC.qrcp_pivots_cuda.launches == before + 1
+    np.testing.assert_array_equal(p32.cpu().numpy(),
+                                  TQ.qrcp_pivots(A.float(), 12).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_spr_end_to_end_on_card_goes_through_the_kernel(card):
+    from openmeasure_torch.datasets.synthetic import make_flame_dataset
+    from openmeasure_torch.pipelines import spr_end_to_end
+    d = make_flame_dataset(n_cells=2000, n_features=3, m_train=20, m_test=3,
+                           dtype=np.float32)
+    before = TQC.qrcp_pivots_cuda.launches
+    res = spr_end_to_end(d["X_train"], d["X_test"], n_features=3, r=10)
+    torch.cuda.synchronize()
+    assert TQC.qrcp_pivots_cuda.launches == before + 1
+    assert res.X_rec.device.type == "cuda"
+    assert float(res.nrmse) < 1e-3
