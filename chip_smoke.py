@@ -6,14 +6,22 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``openmeasure_torch/csrc``, holds
-each kernel against its plain PyTorch version on the card, drives the SPR
-soft-sensing path through its user entry points — ``spr_end_to_end`` at the
-flagship size (165,258 × 41 synthetic flame snapshots, r = 14) and at the
-3D size (1,723,599 × 45, r = 14, svd_width = 28), and the class API
-``SPR.fit → optimal_placement → train → predict → reconstruct`` at the
-flagship size — checks each reconstruction's NRMSE, shows by the launch
-counters that each path ran through the kernels, and times the kernels and
-the pipeline with CUDA events.
+each kernel against its plain PyTorch version on the card, and drives two
+paths through their user entry points:
+
+* SPR soft sensing — ``spr_end_to_end`` at the flagship size (165,258 × 41
+  synthetic flame snapshots, r = 14) and at the 3D size (1,723,599 × 45,
+  r = 14, svd_width = 28), and the class API ``SPR.fit → optimal_placement
+  → train → predict → reconstruct`` at the flagship size;
+* the GP ROM — ``gpr_end_to_end`` at the flagship size (41 training and 4
+  test snapshots with 3 parameters each, r = 14, Matérn-2.5, up to 1000
+  Adam iterations), the class API ``GPR.fit → train → predict →
+  reconstruct`` for SingleTask and MultiTask, and one ``engine='host'``
+  run held against the port's float64 CPU result.
+
+It checks each reconstruction's NRMSE, shows by the launch counters that
+each entry point ran through its kernel, and times the kernels and the
+pipelines with CUDA events.
 
 Every failed check raises, and the script exits non-zero without its final
 line.  The last three lines are the card's name and power limit (as
@@ -47,6 +55,29 @@ NEAR_TIE_REL = 1e-5
 # final deflated norms² of kernel and plain version agree to this fraction
 # of the largest initial column norm² (fp32 downdate, k + 1 passes)
 NORMS_REL_TOL = 1e-4
+# csrc/chol.cu against the Cholesky formulation (another algorithm): the
+# TPU kernel's bars (tests/test_tpu_kernels.py) — K⁻¹ within this fraction
+# of max|K⁻¹|, logdet within this absolute error
+CHOL_KINV_REL = 5e-6
+CHOL_LOGDET_ABS = 5e-3
+# against its plain version (the same fp32 operations in the same order but
+# the Gram's sums), tightened from those bars by what the card showed on
+# its first run: K⁻¹ ≤ 1.8e-7 of max|K⁻¹| and logdet equal on every batch
+# up to p = 128
+CHOL_PLAIN_KINV_REL = 1e-6
+CHOL_PLAIN_LOGDET_ABS = 1e-5
+# GP ROM reconstruction NRMSE of the JAX package in float64 on the CPU, on
+# the same flagship data and settings (gpr_end_to_end; GPR class flow with
+# fit(select_modes="number", n_modes=14) and the default train()).  The
+# fp32 bar is 1.10× it: fp32 GP training stops at other hyperparameters
+# (near-flat MLL, |Δloss| ≤ 1e-5), and the fp32 runs on the CPU land at
+# +1.7 % (the port) and +3.5 % (the JAX package) of the float64 value
+GPR_F64_NRMSE = {"gpr_end_to_end": 0.014428297574591142,
+                 "SingleTask": 0.014428297574588838,
+                 "MultiTask": 0.014422943670200609}
+GPR_NRMSE_SLACK = 1.10
+# engine='host' against the port's float64 CPU run of the same inputs
+HOST_ENGINE_TOL = 1e-10
 
 
 def log(msg: str) -> None:
@@ -70,13 +101,17 @@ def main() -> int:
 
     import numpy as np
     import openmeasure_torch  # noqa: F401  (pins full-fp32 matmuls)
-    from openmeasure_torch import SPR, _build
+    from openmeasure_torch import GPR, SPR, _build
     from openmeasure_torch.core import scaling
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
+    from openmeasure_torch.gp import exact_gp
+    from openmeasure_torch.linalg import chol as chol_plain
+    from openmeasure_torch.linalg import chol_cuda as chol_kern
     from openmeasure_torch.linalg import qrcp as plain
     from openmeasure_torch.linalg import qrcp_cuda as kern
     from openmeasure_torch.linalg import svd
-    from openmeasure_torch.pipelines import spr_end_to_end
+    from openmeasure_torch.pipelines import gpr_end_to_end, spr_end_to_end
+    from openmeasure_torch.utils.convert import gpr_from_numpy
     from openmeasure_torch.utils.metrics import nrmse
 
     t_start = time.perf_counter()
@@ -92,10 +127,9 @@ def main() -> int:
 
     # ---- build every kernel from the checkout's sources ----------------
     t0 = time.perf_counter()
-    names = _build.sources()
-    for name in names:
-        _build.load_library(name)
-    log(f"build: {names} in {time.perf_counter() - t0:.1f} s")
+    names = _build.load_all()
+    log(f"build: {names} in {time.perf_counter() - t0:.1f} s (one nvcc per "
+        "source, in parallel)")
     for name in names:
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
@@ -337,6 +371,190 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
+
+    # ---- GP ROM: csrc/chol.cu against its plain versions ---------------
+    log("phase 5: csrc/chol.cu vs chol_inv_logdet_plain (bars: K⁻¹ ≤ "
+        f"{CHOL_PLAIN_KINV_REL} × max|K⁻¹|, logdet ≤ {CHOL_PLAIN_LOGDET_ABS}) "
+        f"and the Cholesky formulation (K⁻¹ ≤ {CHOL_KINV_REL}, logdet ≤ "
+        f"{CHOL_LOGDET_ABS}), random SPD fp32 batches")
+
+    def spd_batch(B, p, seed):
+        g = np.random.default_rng(seed)
+        Q = g.standard_normal((B, p, p))
+        K = np.einsum("bij,bkj->bik", Q, Q) / p + 0.5 * np.eye(p)[None]
+        return torch.as_tensor((K + np.swapaxes(K, 1, 2)) / 2,
+                               dtype=torch.float32, device=dev)
+
+    def chol_errors(K):
+        """(K⁻¹ error / max|K⁻¹|, logdet error, max |ΔK⁻¹|) of the kernel
+        against the plain version, and the same two ratios against the
+        Cholesky formulation."""
+        kk, lk = chol_kern.chol_inv_logdet_cuda(K)
+        out = []
+        for kp, lp in (chol_plain.chol_inv_logdet_plain(K),
+                       chol_plain.chol_inv_logdet_torch(K)):
+            dk = float(torch.max(torch.abs(kk - kp)))
+            out.append((dk / float(torch.max(torch.abs(kp))),
+                        float(torch.max(torch.abs(lk - lp))), dk))
+        sync()
+        return out
+
+    for B, p in ((14, 41), (3, 17), (30, 64), (2, 128), (4, 1)):
+        (rk, rl, _), (tk, tl, _) = chol_errors(spd_batch(B, p, seed=p))
+        log(f"  ({B}, {p}, {p}): vs plain K⁻¹ {rk:.3e}, logdet {rl:.3e}; "
+            f"vs Cholesky K⁻¹ {tk:.3e}, logdet {tl:.3e}")
+        if not (rk <= CHOL_PLAIN_KINV_REL and rl <= CHOL_PLAIN_LOGDET_ABS):
+            fail(f"chol kernel disagrees with its plain version at "
+                 f"({B}, {p}, {p})")
+        if not (tk <= CHOL_KINV_REL and tl <= CHOL_LOGDET_ABS):
+            fail(f"chol kernel disagrees with the Cholesky formulation at "
+                 f"({B}, {p}, {p})")
+
+    # ---- GP ROM: the main path, each entry point with the counter reset --
+    log("phase 6: GP ROM main path, flagship (counter reset before each "
+        "entry point)")
+    Pf, Ptf = flag["P_train"], flag["P_test"]
+    Tf64 = torch.as_tensor(flag["X_test"], dtype=torch.float64)
+
+    def chol_counted(fn):
+        chol_kern.chol_inv_logdet_cuda.launches = 0
+        out = fn()
+        sync()
+        return out, chol_kern.chol_inv_logdet_cuda.launches
+
+    def gp_class_flow(gpr_type, engine="device"):
+        g = GPR(flag["X_train"], 9, flag["xyz"], Pf, gpr_type)
+        g.fit(select_modes="number", n_modes=14)
+        g.train(engine=engine)
+        a_pred, _ = g.predict(Ptf)
+        return g, a_pred, g.reconstruct(a_pred)
+
+    gp_runs = {}
+    res_g, n_g = chol_counted(lambda: gpr_end_to_end(
+        flag["X_train"], Pf, Ptf, flag["X_test"], **FLAGSHIP))
+    gp_runs["gpr_end_to_end"] = (res_g.X_rec, float(res_g.nrmse), n_g,
+                                 res_g.iterations.tolist())
+    for gpr_type in ("SingleTask", "MultiTask"):
+        (g, _, xr), n = chol_counted(lambda: gp_class_flow(gpr_type))
+        gp_runs[gpr_type] = (xr, float(nrmse(xr, Tf)), n,
+                             g._iterations.tolist())
+        if gpr_type == "SingleTask":
+            gp_single = g
+    for what, (xr, nr, n, its) in gp_runs.items():
+        bar = GPR_NRMSE_SLACK * GPR_F64_NRMSE[what]
+        log(f"  {what}: NRMSE {nr:.6e} (≤ {bar:.6e}; float64 JAX on the CPU "
+            f"{GPR_F64_NRMSE[what]:.6e}), chol launches {n}, Adam "
+            f"iterations {its}")
+        if tuple(xr.shape) != flag["X_test"].shape or \
+                not bool(torch.isfinite(xr).all()):
+            fail(f"GP {what} reconstruction is not finite of shape "
+                 f"{flag['X_test'].shape}")
+        if not nr <= bar:
+            fail(f"GP {what} NRMSE {nr:.6e} > {bar:.6e}")
+        if n < 1:
+            fail(f"the GP {what} path never launched csrc/chol.cu")
+
+    log("phase 7: engine='host' against the port's float64 CPU run of the "
+        f"same inputs (|ΔNRMSE| ≤ {HOST_ENGINE_TOL})")
+    (gh, a_host, xr_host), n_host = chol_counted(
+        lambda: gp_class_flow("SingleTask", engine="host"))
+    state = {k: getattr(gh, k).double().cpu().numpy()
+             for k in ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r",
+                       "P_cnt", "P_scl", "P0")}
+    ref = gpr_from_numpy(dict(state, P=np.asarray(Pf, np.float64)),
+                         {"n_features": 9}, device="cpu")
+    ref.train()
+    a_ref, _ = ref.predict(np.asarray(Ptf, np.float64))
+
+    def nrmse64(a):
+        x = (ref.Ur @ a.T) * ref.X_scl + ref.X_cnt
+        return float(torch.sqrt(torch.mean((x - Tf64) ** 2))
+                     / (Tf64.max() - Tf64.min()))
+
+    nr_host, nr_ref = nrmse64(a_host), nrmse64(a_ref)
+    log(f"  host engine: A_pred on {a_host.device} {a_host.dtype}, NRMSE "
+        f"(float64 reconstruction) {nr_host!r}, port float64 CPU {nr_ref!r}, "
+        f"|Δ| {abs(nr_host - nr_ref):.3e}; fp32 reconstruction on the card "
+        f"{float(nrmse(xr_host, Tf)):.6e}; iterations "
+        f"{gh._iterations.tolist()} vs {ref._iterations.tolist()}; chol "
+        f"launches {n_host} (the GP stage runs on the host)")
+    if a_host.device.type != "cpu" or a_host.dtype != torch.float64:
+        fail("engine='host' did not keep its results on the host in float64")
+    if not abs(nr_host - nr_ref) <= HOST_ENGINE_TOL:
+        fail(f"engine='host' NRMSE {nr_host!r} != float64 CPU {nr_ref!r}")
+
+    # ---- GP ROM timings -------------------------------------------------
+    log("phase 8: GP timings (CUDA events; inputs resident on the card)")
+    Pft = torch.as_tensor(Pf, device=dev)
+    Ptft = torch.as_tensor(Ptf, device=dev)
+    walls = []
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = gpr_end_to_end(Xf, Pft, Ptft, Tf, **FLAGSHIP)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+    walls = walls[1:]
+    its = res.iterations
+    log(f"  gpr_end_to_end flagship: wall per call median "
+        f"{statistics.median(walls):.4f} ms (min {min(walls):.4f}, max "
+        f"{max(walls):.4f}; 5 calls after one warm-up), Adam iterations "
+        f"max {int(its.max())} → "
+        f"{statistics.median(walls) / int(its.max()):.4f} ms per iteration")
+
+    # the kernel's input on the main path: the trained SingleTask model's
+    # jittered kernel matrices at its 41 training points, (14, 41, 41)
+    with torch.no_grad():
+        tp = gp_single.params
+        Kxx = gp_single.kernel(tp["kernel"], gp_single.P0, gp_single.P0)
+        Kn = exact_gp._add_noise(
+            Kxx, gp_single.likelihood.noise(tp["likelihood"]))
+        Kmain = (Kn + exact_gp._jitter(Kn.dtype)
+                 * torch.eye(Kn.shape[-1], device=dev)).contiguous()
+    (rk, rl, dk), _ = chol_errors(Kmain)
+    log(f"  main-path matrices {tuple(Kmain.shape)}: vs plain K⁻¹ {rk:.3e} "
+        f"(max |ΔK⁻¹| {dk:.3e}), logdet {rl:.3e}")
+    if not (rk <= CHOL_PLAIN_KINV_REL and rl <= CHOL_PLAIN_LOGDET_ABS):
+        fail("chol kernel disagrees with its plain version on the main "
+             "path's matrices")
+    Bm, pm, _ = Kmain.shape
+
+    def cusolver_composition():
+        L, _ = torch.linalg.cholesky_ex(Kmain)
+        kinv = torch.cholesky_inverse(L)
+        return kinv, 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)
+                                     ).sum(-1)
+
+    chol_ms = loop_ms(lambda: chol_kern.chol_inv_logdet_cuda(Kmain), n=200)
+    chol_plain_ms = loop_ms(lambda: chol_plain.chol_inv_logdet_plain(Kmain),
+                            n=5, warmup=1)
+    cusolver_ms = loop_ms(cusolver_composition, n=200)
+    chol_bytes_ms = (2 * Bm * pm * pm + Bm) * 4 / HBM_BYTES_PER_S * 1e3
+    # the algorithm's operations, counted on its triangles: Schur updates
+    # (one multiply and one subtract per trailing lower-triangle element),
+    # forward substitution (per row below the step, per column up to it),
+    # the Gram's lower triangle, and one rsqrt and one log per pivot
+    ops = (sum((pm - 1 - j) * (pm - j) for j in range(pm))
+           + sum(2 * (pm - 1 - j) * (j + 1) for j in range(pm))
+           + sum(2 * (pm - k) * (k + 1) for k in range(pm)) + 2 * pm) * Bm
+    chol_ops_ms = ops / FP32_FLOPS * 1e3
+    chol_bound_ms = max(chol_bytes_ms, chol_ops_ms)
+    log(f"  yardstick, not a port: cuSOLVER composition (cholesky_ex + "
+        f"cholesky_inverse + log-diag, three calls) {cusolver_ms:.5f} ms")
+    log(f"  chol {tuple(Kmain.shape)}: kernel {chol_ms:.5f} ms per launch, "
+        f"plain {chol_plain_ms:.4f} ms, bound {chol_bound_ms:.6f} ms (bytes "
+        f"{chol_bytes_ms:.6f}, ops {chol_ops_ms:.6f}: {ops} operations)")
+    records.append({
+        "name": "chol_inv_logdet_cuda", "route": "cuda",
+        "source": "openmeasure_torch/csrc/chol.cu",
+        "replaces": "openmeasure_tpu/linalg/chol_pallas.py:85",
+        "launches": sum(v[2] for v in gp_runs.values()),
+        "max_abs_err": dk, "ms": chol_ms, "plain_ms": chol_plain_ms,
+        "bound_ms": chol_bound_ms,
+        "bound_by": "bytes" if chol_bytes_ms >= chol_ops_ms else "operations",
+        "library_ms": None})
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -1,13 +1,17 @@
 """openmeasure-torch: the PyTorch/CUDA port of openmeasure-tpu.
 
-The port runs the soft-sensing flow on an NVIDIA Hopper card: feature-block
-scaling, a Gram-route truncated SVD, greedy column-pivoted QR sensor
-placement (a hand-written CUDA kernel, ``csrc/qrcp.cu``) and the gappy-POD
-reconstruction.  Module names, public function names and array layouts
-follow ``openmeasure_tpu`` so each piece has an obvious counterpart.
+The port runs two flows on an NVIDIA Hopper card.  Soft sensing:
+feature-block scaling, a Gram-route truncated SVD, greedy column-pivoted QR
+sensor placement (a hand-written CUDA kernel, ``csrc/qrcp.cu``) and the
+gappy-POD reconstruction.  The GP ROM: per-mode Gaussian processes over
+the POD coefficients, trained by Adam on the closed-form marginal
+likelihood, with the batched SPD inverse and log-determinant in a
+hand-written CUDA kernel (``csrc/chol.cu``).  Module names, public
+function names and array layouts follow ``openmeasure_tpu`` so each piece
+has an obvious counterpart.
 
-    from openmeasure_torch import ROM, SPR
-    from openmeasure_torch.pipelines import spr_end_to_end
+    from openmeasure_torch import ROM, SPR, GPR
+    from openmeasure_torch.pipelines import spr_end_to_end, gpr_end_to_end
 
 Every entry point takes ``device=None``, which means ``"cuda"``; with no
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run
@@ -26,14 +30,15 @@ _torch.set_float32_matmul_precision("highest")
 
 from .rom.rom import ROM  # noqa: E402
 from .sensing.spr import SPR  # noqa: E402
+from .gp.gpr import GPR  # noqa: E402
 
-__all__ = ["ROM", "SPR"]
+__all__ = ["ROM", "SPR", "GPR"]
 __version__ = "0.1.0"
 
 # Names of the JAX package's top level that later slices of the port bring
 # over, each with the ROADMAP.md §A item that ports it.
 _NOT_YET_PORTED = {
-    "GPR": "A.9", "PIGPR": "A.9",
+    "PIGPR": "A.9",
     "CoKriging": "A.10", "MultiFiCoKriging": "A.10",
     "GPRSensor": "A.10", "CoKrigingSensor": "A.10",
     "SoftSensor": "A.8",

@@ -85,6 +85,17 @@ def _compile(name: str, out: Path) -> None:
     os.replace(tmp, out)
 
 
+def load_all() -> list:
+    """Build (where needed) and load every source of ``csrc/``, one
+    ``nvcc`` per source, all started together; returns the names."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = sources()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        for fut in [ex.submit(load_library, n) for n in names]:
+            fut.result()
+    return names
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)

@@ -1,0 +1,417 @@
+"""GPR: the Gaussian-process reduced-order model (port of
+``openmeasure_tpu/gp/gpr.py``, the fit/train/predict flow).
+
+* ``gpr_type='SingleTask'``: r independent exact GPs over the normalized
+  POD coefficients Vr, trained as ONE batched Adam run with per-mode early
+  stopping (a leading mode axis on every parameter);
+* ``gpr_type='MultiTask'``: a batch-independent multitask GP with a shared
+  multitask likelihood (global + per-task noise).
+
+Defaults match the reference: ConstantMean, Matérn-2.5 kernel, Gaussian /
+multitask-Gaussian likelihood, Adam(lr=0.1), max_iter=1000,
+rel_error=1e-5.
+
+``engine='host'`` runs the GP stage (training, posteriors) with the same
+torch functions on the host CPU in float64 (:mod:`..core.host64`), on top
+of the basis fitted on the model's device; its results stay on the host.
+It also scales the test points in float64 (the JAX package scales them in
+the ambient dtype first), so the whole GP stage runs in double.
+
+Not ported in this slice, each raising ``NotImplementedError`` naming its
+ROADMAP.md item: ``predict`` with ``limits``/``bc``/``constraints``
+(the ADMM box-QP, A.7), ``update`` (A.9), ``update_basis`` (A.14).
+``PIGPR`` is A.9 too.  The JAX package's documented deviations from the
+reference (``Vr_sigma`` at the trained hyperparameters, SingleTask
+constrained predict raising) carry over.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core import scaling as _scaling
+from ..core.device import DeviceLike, as_tensor, to_numpy
+from ..core.host64 import tree_f64
+from ..linalg import svd as _svd
+from ..rom.rom import ROM
+from . import exact_gp as E
+from . import kernels as K
+
+
+class MultitaskPosterior(NamedTuple):
+    """Posterior predictive of all modes at the evaluation points."""
+    mean: torch.Tensor     # (n_points, r)
+    stddev: torch.Tensor   # (n_points, r)
+
+
+def posterior_all_modes(mean, kernel, likelihood, gpr_type, params, X, Y,
+                        Xs):
+    """Noise-inclusive posterior over all modes — the one implementation of
+    the SingleTask/MultiTask/FixedNoise branching.  ``Y`` is (p, r).
+    Returns ``(means (r, q), variances (r, q))``."""
+    if gpr_type == "MultiTask":
+        noises = likelihood.noise(params["likelihood"])
+        return E.gp_posterior(mean, kernel, params["tasks"], noises, X, Y.T,
+                              Xs, include_noise=True)
+    if isinstance(likelihood, K.FixedNoiseGaussianLikelihood):
+        nz = likelihood.noise(params["likelihood"])          # (r, p)
+        return E.gp_posterior(mean, kernel, params, nz, X, Y.T, Xs,
+                              include_noise=True,
+                              pred_noise=torch.mean(nz, dim=-1))
+    nz = likelihood.noise(params["likelihood"])
+    return E.gp_posterior(mean, kernel, params, nz, X, Y.T, Xs,
+                          include_noise=True)
+
+
+def _stack_params(params, r):
+    return E.tree_map(lambda x: x.expand((r,) + x.shape).clone(), params)
+
+
+class GPR(ROM):
+    """GPR-based ROM: ``GPR(X, n_features, xyz, P, gpr_type='SingleTask',
+    device=None)`` with P (m, d) the parameters of the m snapshots."""
+
+    def __init__(self, X, n_features, xyz, P, gpr_type: str = "SingleTask",
+                 device: DeviceLike = None):
+        super().__init__(X, n_features, xyz, device=device)
+        self.P = P
+        self.gpr_type = gpr_type
+        if P.shape[0] != X.shape[1]:
+            raise Exception(
+                f"The number of parameters ({P.shape[0]}) is different"
+                f" from the number of columns of X ({X.shape[1]})")
+
+    # ------------------------------------------------------------------ #
+    # Scaling + fit
+    # ------------------------------------------------------------------ #
+
+    def scale_GPR_data(self, P, scale_type: str):
+        """Scale the parameters column by column; returns P0 and keeps
+        ``P_cnt``/``P_scl``.  P takes the dtype of the fitted snapshots
+        (the JAX package's ambient dtype)."""
+        P = self._t(P)
+        if hasattr(self, "X_cnt"):
+            P = P.to(self.X_cnt.dtype)
+        P0, P_cnt, P_scl = _scaling.scale_parameters(P, scale_type)
+        # same degenerate-scale guard as ROM.scale_data (the JAX package's
+        # documented deviation): a constant parameter column zeroes its
+        # scale under most scale types, and the NaN would silently poison
+        # every GP fit on that input.  Constancy is tested directly.
+        scl = to_numpy(P_scl)[0]
+        bad = ~(np.isfinite(scl) & (scl != 0))
+        if scale_type in ("std", "pareto", "range", "variance",
+                          "vast", "vast_2", "vast_3", "vast_4"):
+            bad |= np.ptp(to_numpy(P), axis=0) == 0
+        bad = np.flatnonzero(bad)
+        if bad.size:
+            raise ValueError(
+                f"scale_GPR_data(scale_type={scale_type!r}): parameter "
+                f"column(s) {bad.tolist()} have a zero or non-finite "
+                f"scale factor (values {scl[bad].tolist()}) — typically "
+                "a constant design parameter. Drop the column or use "
+                "scale_type='none'.")
+        self.P_cnt = P_cnt
+        self.P_scl = P_scl
+        return P0
+
+    def fit(self, scaleX_type: str = "std", scaleP_type: str = "std",
+            axis_cnt: Optional[int] = 1, select_modes: str = "variance",
+            n_modes=99, verbose: bool = False, basis=None, config=None,
+            deflate=False):
+        """``config`` (:class:`openmeasure_torch.core.config.FitConfig`)
+        overrides the individual kwargs (its ``scale_type`` applies to both
+        X and P).  ``basis=(Ur, Ar)`` skips the decomposition.
+
+        ``deflate=True`` (or an explicit split index k) recomputes the
+        selected basis with the two-block deflated Gram route
+        (:func:`openmeasure_torch.linalg.svd.svd_tall_deflated`) after rank
+        selection, for per-mode accuracy of the deep-tail modes."""
+        if config is not None:
+            scaleX_type = config.scale_type
+            scaleP_type = config.scale_type
+            axis_cnt = config.axis_cnt
+            select_modes = config.select_modes
+            n_modes = config.n_modes
+        self.scaleX_type = scaleX_type
+        self.scaleP_type = scaleP_type
+        self.select_modes = select_modes
+        self.n_modes = n_modes
+        self.verbose = verbose
+
+        if deflate and basis is not None:
+            raise ValueError(
+                "deflate= has no effect with basis= (there is no "
+                "decomposition to deflate); drop one of them.")
+        self.X0 = self.scale_data(scaleX_type, axis_cnt)
+        if basis is None:
+            Ur, Ar, _ = self.decomposition(self.X0, select_modes, n_modes)
+            if deflate:
+                k = self.r // 2 if deflate is True else int(deflate)
+                if not 0 < k < self.r:
+                    raise ValueError(
+                        f"deflate split must satisfy 0 < k < r={self.r} "
+                        f"(got k={k}; deflate=True needs r >= 2) — the "
+                        "requested tail-accuracy knob cannot silently "
+                        "no-op.")
+                U2, S2, Vt2 = _svd.svd_tall_deflated(self.X0, rank=self.r,
+                                                     deflate=k)
+                Ur, Vt2r = _svd._sign_canonicalize(U2, Vt2[:self.r])
+                Ar = (S2[:self.r, None] * Vt2r).T
+        else:
+            Ur, Ar = self._t(basis[0]), self._t(basis[1])
+
+        self.Ur = Ur
+        self.Ar = Ar
+        self.r = Ar.shape[1]
+        self.d = self.P.shape[1]
+
+        self.Sigma_r = torch.linalg.vector_norm(Ar, dim=0)
+        self.Vr = Ar / self.Sigma_r[None, :]
+        self.P0 = self.scale_GPR_data(self.P, scaleP_type)
+        self._invalidate_trained_state()
+
+    def _invalidate_trained_state(self):
+        """Refit hook: the trained hyperparameters and training set were
+        built on the OLD basis's coefficients — drop them so predict
+        demands train() again."""
+        for a in ("params", "models", "likelihoods", "Vr_sigma",
+                  "_final_loss", "_iterations", "_train_X", "_train_Y"):
+            if hasattr(self, a):
+                delattr(self, a)
+
+    # ------------------------------------------------------------------ #
+    # Train
+    # ------------------------------------------------------------------ #
+
+    def _default_specs(self, mean, kernel, likelihood):
+        if mean is None:
+            mean = K.ConstantMean()
+        if kernel is None:
+            kernel = K.MaternKernel(2.5)
+        if likelihood is None:
+            if self.gpr_type == "MultiTask":
+                likelihood = K.MultitaskGaussianLikelihood(num_tasks=self.r)
+            else:
+                likelihood = K.GaussianLikelihood()
+        return mean, kernel, likelihood
+
+    def _init_task_params(self, mean, kernel, likelihood, like):
+        p = {"mean": mean.init_params(self.d, **like),
+             "kernel": kernel.init_params(self.d, **like)}
+        if isinstance(likelihood, K.GaussianLikelihood):
+            p["likelihood"] = likelihood.init_params(**like)
+        return p
+
+    def train(self, mean=None, kernel=None, likelihood=None,
+              max_iter: int = 1000, rel_error: float = 1e-5, lr: float = 0.1,
+              verbose: bool = False, config=None, engine: str = "device"):
+        """Train the GP hyperparameters.  ``config``
+        (:class:`openmeasure_torch.core.config.GPTrainConfig`) overrides
+        max_iter/rel_error/lr/verbose/engine when given.
+
+        ``engine='host'`` runs the GP stage — this training and every later
+        posterior — on the host CPU in float64 (the reference trains in
+        double); the default ``'device'`` runs it on the model's device in
+        the basis's dtype.  Returns ``(models, likelihoods)``, the
+        reference's API views."""
+        if config is not None:
+            max_iter = config.max_iter
+            rel_error = config.rel_error
+            lr = config.lr
+            verbose = config.verbose
+            engine = getattr(config, "engine", engine)
+        if engine not in ("device", "host"):
+            raise ValueError(
+                f"engine must be 'device' or 'host'; got {engine!r}")
+        self.engine = engine
+        self.max_iter = max_iter
+        self.rel_error = rel_error
+        self.lr = lr
+        self.verbose = verbose
+
+        mean, kernel, likelihood = self._default_specs(mean, kernel,
+                                                       likelihood)
+        # fail at the API boundary: each gpr_type supports exactly one
+        # likelihood family
+        if self.gpr_type == "MultiTask":
+            if not isinstance(likelihood, K.MultitaskGaussianLikelihood):
+                raise TypeError(
+                    "MultiTask training needs a MultitaskGaussian"
+                    f"Likelihood; got {type(likelihood).__name__}.")
+        elif not isinstance(likelihood, K.GaussianLikelihood):
+            raise TypeError(
+                "SingleTask training needs a GaussianLikelihood; got "
+                f"{type(likelihood).__name__}.")
+        self.mean = mean
+        self.kernel = kernel
+        self.likelihood = likelihood
+
+        P0, Vr = self.P0, self.Vr
+        self._train_X = P0
+        self._train_Y = Vr
+        like = dict(dtype=P0.dtype, device=P0.device)
+
+        if self.gpr_type == "MultiTask":
+            params0 = {
+                "tasks": _stack_params(
+                    self._init_task_params(mean, kernel, likelihood, like),
+                    self.r),
+                "likelihood": likelihood.init_params(**like),
+            }
+            self.params, res = self._multitask_adam(params0, P0, Vr)
+            Vr_sigma = self._prior_stddev_all(self.params["tasks"], P0)
+        else:
+            params0 = _stack_params(
+                self._init_task_params(mean, kernel, likelihood, like),
+                self.r)
+            res = self._single_task_adam(params0, likelihood, P0, Vr)
+            self.params = res.params
+            Vr_sigma = self._prior_stddev_all(self.params, P0)
+        self._final_loss = res.loss
+        self._iterations = res.iterations
+        self.Vr_sigma = Vr_sigma
+        if verbose:
+            print(f"GP training done - final loss per model: "
+                  f"{to_numpy(res.loss)}; iterations: "
+                  f"{to_numpy(res.iterations)}")
+        self._refresh_api_compat()
+        return self.models, self.likelihoods
+
+    def _run_gp_stage(self, fn, *args):
+        """Run one GP compute stage under the model's engine: ``'device'``
+        calls through on the arguments as they are; ``'host'`` calls the
+        same function on host float64 copies of every argument and keeps
+        the results on the host."""
+        if getattr(self, "engine", "device") == "host":
+            return fn(*[tree_f64(a) for a in args])
+        return fn(*args)
+
+    def _prior_stddev_all(self, task_params, P0):
+        """(p, r) prior stddev at P0 under the engine — what the reference
+        records as ``Vr_sigma``."""
+        def run(tp, X):
+            return E.gp_prior_stddev(self.mean, self.kernel, tp, X).T
+        return self._run_gp_stage(run, task_params, P0)
+
+    def _single_task_adam(self, params0, likelihood, P0, Vr):
+        """One batched single-task Adam/early-stop run under the engine
+        (loss builder + closed-form oracle; autograd where the oracle does
+        not cover the specs)."""
+        def run(params0, P0, Vr):
+            loss_fn = E.make_single_task_loss(self.mean, self.kernel,
+                                              likelihood, P0, Vr.T)
+            vag = E.make_single_task_value_and_grad(
+                self.mean, self.kernel, likelihood, P0, Vr.T)
+            return E.adam_early_stop(loss_fn, params0, lr=self.lr,
+                                     max_iter=self.max_iter,
+                                     rel_error=self.rel_error,
+                                     value_and_grad=vag)
+        return self._run_gp_stage(run, params0, P0, Vr)
+
+    def _multitask_adam(self, params, P0, Vr):
+        """One MultiTask Adam/early-stop run from ``params`` on (P0, Vr),
+        under the engine: the parameters get a leading axis of 1 for the
+        shared trainer.  Returns (unbatched params, TrainResult)."""
+        def run(params, P0, Vr):
+            loss_raw = E.make_multitask_loss(self.mean, self.kernel,
+                                             self.likelihood, P0, Vr)
+            params_b = E.tree_map(lambda x: x[None], params)
+
+            def loss_fn(pb):
+                return loss_raw(E.tree_map(lambda x: x[0], pb))
+
+            vag_raw = E.make_multitask_value_and_grad(
+                self.mean, self.kernel, self.likelihood, P0, Vr)
+            vag = None
+            if vag_raw is not None:
+                def vag(pb):
+                    losses, grads = vag_raw(E.tree_map(lambda x: x[0], pb))
+                    return losses, E.tree_map(lambda g: g[None], grads)
+            res = E.adam_early_stop(loss_fn, params_b, lr=self.lr,
+                                    max_iter=self.max_iter,
+                                    rel_error=self.rel_error,
+                                    value_and_grad=vag)
+            return E.tree_map(lambda x: x[0], res.params), res
+        return self._run_gp_stage(run, params, P0, Vr)
+
+    def _refresh_api_compat(self):
+        """Rebuild the reference-parity ``models``/``likelihoods`` views
+        from the current params/likelihood."""
+        if self.gpr_type == "MultiTask":
+            self.models = [self.params]
+            self.likelihoods = [self.likelihood]
+        else:
+            self.models = [E.tree_map(lambda x, i=i: x[i], self.params)
+                           for i in range(self.r)]
+            self.likelihoods = [self.likelihood] * self.r
+
+    # ------------------------------------------------------------------ #
+    # Predict
+    # ------------------------------------------------------------------ #
+
+    def _posterior_all(self, P0_star) -> MultitaskPosterior:
+        """Noise-inclusive posterior at scaled test points, all modes,
+        under the engine."""
+        def run(params, X, Y, Xs):
+            means, variances = posterior_all_modes(
+                self.mean, self.kernel, self.likelihood, self.gpr_type,
+                params, X, Y, Xs)
+            return means.T, torch.sqrt(variances).T
+        m, s = self._run_gp_stage(run, self.params, self._train_X,
+                                  self._train_Y, P0_star)
+        return MultitaskPosterior(mean=m, stddev=s)
+
+    def predict(self, P_star, problem_dict=None, limits=None, bc=None,
+                constraints=None, **kwargs):
+        """Posterior POD coefficients at new parameters ``P_star`` (n_p, d)
+        or (d,).  Returns ``(A_pred, A_sigma)``, each (n_p, r): on the
+        model's device, or on the host in float64 for ``engine='host'``.
+
+        Constrained prediction (``limits``, ``bc``, ``constraints``, or a
+        ``problem_dict`` holding them) needs the ADMM box-QP solver and is
+        not ported yet (ROADMAP.md §A item 7)."""
+        del kwargs
+        if not hasattr(self, "models"):
+            raise AttributeError("The function fit has to be called "
+                                 "before calling predict.")
+        if problem_dict is not None:
+            limits = limits if limits is not None else problem_dict.get(
+                "limits")
+            bc = bc if bc is not None else problem_dict.get("bc")
+            constraints = constraints if constraints is not None else \
+                problem_dict.get("constraints")
+        if limits is not None or bc is not None or constraints is not None:
+            raise NotImplementedError(
+                "GPR.predict with limits/bc/constraints (the ADMM box-QP "
+                "solver) is not ported yet (ROADMAP.md §A item 7).")
+        host = getattr(self, "engine", "device") == "host"
+        P_star = as_tensor(P_star, self.device, dtype=self.P_cnt.dtype)
+        if P_star.ndim < 2:
+            P_star = P_star[None, :]
+        cnt, scl = self.P_cnt[0], self.P_scl[0]
+        if host:
+            # the host engine scales the test points in float64 too: the
+            # whole GP stage, inputs included, runs in double
+            P_star, cnt, scl = (tree_f64(t) for t in (P_star, cnt, scl))
+        P0_star = (P_star - cnt[None, :]) / scl[None, :]
+
+        post = self._posterior_all(P0_star)
+        sig = tree_f64(self.Sigma_r) if host else self.Sigma_r
+        return post.mean * sig[None, :], post.stddev * sig[None, :]
+
+    # ------------------------------------------------------------------ #
+    # Later slices
+    # ------------------------------------------------------------------ #
+
+    def update(self, *args, **kwargs):
+        raise NotImplementedError(
+            "GPR.update (online assimilation and fixed-noise retraining) "
+            "is not ported yet (ROADMAP.md §A item 9).")
+
+    def update_basis(self, *args, **kwargs):
+        raise NotImplementedError(
+            "GPR.update_basis (incremental SVD) is not ported yet "
+            "(ROADMAP.md §A item 14).")

@@ -1,0 +1,80 @@
+"""Batched small-SPD inverse and log-determinant on the card: the CUDA
+kernel of ``csrc/chol.cu``, its wrapper and its launch counter.
+
+The kernel is the port of the TPU kernel ``_chol_kernel``
+(``openmeasure_tpu/linalg/chol_pallas.py:85``): one launch for a whole
+(B, p, p) batch, one thread block per matrix, K⁻¹ = L⁻ᵀL⁻¹ formed inside
+the kernel.  The dispatch that decides which tensors reach it, and the
+plain versions, are in :mod:`openmeasure_torch.linalg.chol`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+P_MAX = 128     # size cap of the kernel (the TPU kernel's unroll cap)
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, its C signatures declared (first call
+    builds ``csrc/chol.cu``)."""
+    global _lib
+    if _lib is None:
+        from .._build import load_library
+        lib = load_library("chol")
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.chol_inv_logdet_launch.argtypes = [p, i32, i32, p, p, p]
+        lib.chol_inv_logdet_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(K: torch.Tensor) -> None:
+    if not isinstance(K, torch.Tensor) or not K.is_cuda:
+        raise ValueError("chol_inv_logdet_cuda needs a CUDA tensor; CPU "
+                         "tensors take chol_inv_logdet_auto.")
+    if K.dtype != torch.float32:
+        raise ValueError(f"chol_inv_logdet_cuda needs float32, got {K.dtype}")
+    if K.ndim != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"K must be a (B, p, p) batch, got shape "
+                         f"{tuple(K.shape)}")
+    B, p, _ = K.shape
+    if not 1 <= B < 2 ** 31:
+        raise ValueError(f"chol_inv_logdet_cuda supports 1 <= B < 2**31, "
+                         f"got B={B}")
+    if not 1 <= p <= P_MAX:
+        raise ValueError(f"chol_inv_logdet_cuda supports 1 <= p <= {P_MAX}, "
+                         f"got p={p}; larger matrices take "
+                         "chol_inv_logdet_torch.")
+
+
+def chol_inv_logdet_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(K⁻¹ (B, p, p), logdet (B,))`` of a CUDA fp32 batch of SPD
+    matrices, by the CUDA kernel: one launch on the current stream, no
+    synchronization.  Only the lower triangle of each matrix is read.
+
+    Raises on anything the kernel does not take (a CPU tensor, another
+    dtype, p outside [1, 128], an empty batch) and when the launch is
+    refused.  ``chol_inv_logdet_cuda.launches`` counts the launches."""
+    _check(K)
+    lib = _library()
+    B, p, _ = K.shape
+    Kc = K.contiguous()
+    with torch.cuda.device(K.device):
+        kinv = torch.empty_like(Kc)
+        logdet = torch.empty(B, dtype=torch.float32, device=K.device)
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        err = lib.chol_inv_logdet_launch(Kc.data_ptr(), B, p, kinv.data_ptr(),
+                                         logdet.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"csrc/chol.cu launch failed: cudaError {err}")
+    chol_inv_logdet_cuda.launches += 1
+    return kinv, logdet
+
+
+chol_inv_logdet_cuda.launches = 0

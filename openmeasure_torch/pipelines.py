@@ -1,5 +1,5 @@
 """End-to-end functional pipelines (port of ``openmeasure_tpu/pipelines.py``,
-the SPR part).
+the SPR and GP-ROM parts).
 
 :func:`spr_end_to_end` is the soft-sensing flow in one call — scale →
 Gram-SVD → truncate → QRCP placement → gappy-POD solve → reconstruct — the
@@ -7,8 +7,13 @@ flagship path of the package.  It runs eagerly on the tensors' device;
 nothing in it synchronizes with the host: the pivots the CUDA kernel
 selects stay on the card and index the panel there.
 
-``gpr_end_to_end`` and ``mfk_end_to_end`` come with the GP and
-co-kriging slices (ROADMAP.md §A items 9 and 10).
+:func:`gpr_end_to_end` is the GP-ROM flow in one call — scale → POD →
+train r per-mode GPs (batched Adam with early stop, the batched SPD
+inverse of ``csrc/chol.cu`` in every iteration) → posterior → reconstruct.
+Its trainer reads the card once every 4 Adam iterations (the convergence
+test).
+
+``mfk_end_to_end`` comes with the co-kriging slice (ROADMAP.md §A item 10).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch
 
 from .core import scaling as _scaling
 from .core.device import DeviceLike, as_tensor, resolve_device
+from .gp import exact_gp as _E
+from .gp import kernels as _K
 from .linalg import svd as _svd
 from .linalg.qrcp_cuda import qrcp_pivots_auto
 
@@ -101,3 +108,77 @@ def pod_fit(
     U, S, Vt = _svd.svd_tall_deflated(X0, rank=r, deflate=deflate)
     Ar = (S[:r, None] * Vt[:r]).T
     return U, Ar, S[:r], cnt, scl
+
+
+class GPRResult(NamedTuple):
+    X_rec: torch.Tensor        # (n, n_test) reconstructed fields
+    A_pred: torch.Tensor       # (n_test, r)
+    A_sigma: torch.Tensor      # (n_test, r)
+    nrmse: torch.Tensor        # scalar — reconstruction NRMSE vs X_test
+    gp_loss: torch.Tensor      # (r,) final per-mode −MLL
+    iterations: torch.Tensor   # (r,) Adam iterations per mode, int32
+
+
+def gpr_end_to_end(
+    X_train,
+    P_train,
+    P_test,
+    X_test,
+    n_features: int,
+    r: int,
+    scale_type: str = "std",
+    max_iter: int = 1000,
+    rel_error: float = 1e-5,
+    lr: float = 0.1,
+    device: DeviceLike = None,
+) -> GPRResult:
+    """Full GP-ROM flow: scale → POD → normalize → scale parameters → train
+    r per-mode GPs (ConstantMean, Matérn-2.5, Gaussian likelihood; batched
+    Adam with early stop and the closed-form gradient) → posterior at
+    ``P_test`` → rescale → reconstruct → NRMSE.
+
+    Equivalent class flow: ``GPR(...).fit(select_modes='number',
+    n_modes=r); train(); predict(P_test); reconstruct(A_pred)``.  Inputs may
+    be numpy arrays or tensors; they are moved to ``device`` (``None``
+    means the card), the snapshots keeping their dtype and the parameters
+    taking it.  The result also carries each mode's Adam iteration
+    count."""
+    dev = resolve_device(device)
+    X_train, X_test = as_tensor(X_train, dev), as_tensor(X_test, dev)
+    P_train, P_test = (as_tensor(a, dev, dtype=X_train.dtype)
+                       for a in (P_train, P_test))
+    # deflate=r//2: the GP regresses each coefficient series separately, so
+    # the deep-tail modes should be accurate mode by mode (the JAX
+    # package's choice, kept for parity)
+    Ur, Ar, Sigma_r, cnt, scl = pod_fit(X_train, n_features, r, scale_type,
+                                        deflate=r // 2, device=dev)
+    Vr = Ar / Sigma_r[None, :]
+
+    P0, P_cnt, P_scl = _scaling.scale_parameters(P_train, scale_type)
+    P0_test = (P_test - P_cnt[0][None, :]) / P_scl[0][None, :]
+
+    mean, kernel, lik = _K.ConstantMean(), _K.MaternKernel(2.5), \
+        _K.GaussianLikelihood()
+    d = P_train.shape[1]
+    like = dict(dtype=P0.dtype, device=dev)
+    task0 = {"mean": mean.init_params(d, **like),
+             "kernel": kernel.init_params(d, **like),
+             "likelihood": lik.init_params(**like)}
+    params0 = _E.tree_map(lambda x: x.expand((r,) + x.shape), task0)
+    loss_fn = _E.make_single_task_loss(mean, kernel, lik, P0, Vr.T)
+    vag = _E.make_single_task_value_and_grad(mean, kernel, lik, P0, Vr.T)
+    res = _E.adam_early_stop(loss_fn, params0, lr=lr, max_iter=max_iter,
+                             rel_error=rel_error, value_and_grad=vag)
+
+    noise = lik.noise(res.params["likelihood"])
+    means, variances = _E.gp_posterior(mean, kernel, res.params, noise, P0,
+                                       Vr.T, P0_test, include_noise=True)
+    V_pred, V_sigma = means.T, torch.sqrt(variances).T
+
+    A_pred = V_pred * Sigma_r[None, :]
+    A_sigma = V_sigma * Sigma_r[None, :]
+    X_rec = (Ur @ A_pred.T) * scl + cnt
+    err = X_rec - X_test
+    nrmse = torch.sqrt(torch.mean(err * err)) / (
+        torch.amax(X_test) - torch.amin(X_test))
+    return GPRResult(X_rec, A_pred, A_sigma, nrmse, res.loss, res.iterations)

@@ -201,8 +201,10 @@ class ROM:
 
     def reconstruct(self, Ar, sampling=None):
         """``X_rec = Ur @ Arᵀ`` (optionally sampled), unscaled
-        column-wise."""
-        Ar = self._t(Ar)
+        column-wise.  ``Ar`` takes the basis's dtype (a host-float64
+        ``GPR`` prediction meets an fp32 basis here, as the JAX package
+        rounds it with x64 off)."""
+        Ar = as_tensor(Ar, self.device, dtype=self.Ur.dtype)
         if Ar.ndim < 2:
             Ar = Ar[None, :]
         if sampling is not None:

@@ -1,19 +1,26 @@
-"""Fitted state carried across from the JAX package's SPR.
+"""Fitted state carried across from the JAX package's SPR and GPR.
 
-:func:`spr_from_numpy` is the port's counterpart of loading weights: it
-builds a fitted (and, with ``C``, trained) port :class:`SPR` from the JAX
-SPR's attributes read out as numpy arrays, under the key names of the JAX
-checkpoint format (``openmeasure_tpu/utils/checkpoint.py:100-107``).
-Reading the ``.npz`` checkpoint files themselves is ROADMAP.md §A item 14.
+:func:`spr_from_numpy` and :func:`gpr_from_numpy` are the port's
+counterpart of loading weights: each builds a fitted (and trained) port
+model from the JAX model's attributes read out as numpy arrays, under the
+key names of the JAX checkpoint format
+(``openmeasure_tpu/utils/checkpoint.py:69-107``: attribute names, the GP
+parameters flattened as ``params/<path>``, the specs as ``{"cls": name,
+"fields": {...}}``).  Reading the ``.npz`` checkpoint files themselves is
+ROADMAP.md §A item 14.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
 from ..core.device import DeviceLike, as_tensor
+from ..core.host64 import tree_f64
+from ..gp import kernels as K
+from ..gp.exact_gp import tree_map
+from ..gp.gpr import GPR
 from ..sensing.spr import SPR
 
 ARRAY_KEYS = ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r", "xyz", "Theta",
@@ -57,3 +64,106 @@ def spr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
         if state.get("Theta") is not None:
             spr.Theta = as_tensor(state["Theta"], spr.device)
     return spr
+
+
+GPR_ARRAY_KEYS = ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r", "xyz", "P",
+                  "P_cnt", "P_scl", "P0", "Vr_sigma", "_train_X", "_train_Y")
+GPR_META_KEYS = ("r", "n_features", "gpr_type", "d", "max_iter", "rel_error",
+                 "lr", "scaleX_type", "scaleP_type", "engine")
+SPEC_KEYS = ("mean_spec", "kernel_spec", "likelihood_spec")
+
+_SPEC_CLASSES = {cls.__name__: cls for cls in (
+    K.ZeroMean, K.ConstantMean, K.LinearMean,
+    K.RBFKernel, K.MaternKernel, K.ScaleKernel, K.LinearKernel,
+    K.GaussianLikelihood, K.FixedNoiseGaussianLikelihood,
+    K.MultitaskGaussianLikelihood)}
+
+
+def spec_from_json(d: Optional[Dict]):
+    """A port spec from the checkpoint's ``{"cls": name, "fields":
+    {...}}`` form (a nested spec is ``{"__spec__": {...}}``)."""
+    if d is None:
+        return None
+    cls = _SPEC_CLASSES[d["cls"]]
+    kw = {}
+    for k, v in d["fields"].items():
+        if isinstance(v, dict) and "__spec__" in v:
+            v = spec_from_json(v["__spec__"])
+        kw[k] = v
+    return cls(**kw)
+
+
+def _unflatten_params(arrays: Mapping[str, Any]) -> Dict:
+    """The nested parameter dict from ``params/a/b`` keys; an
+    ``.../__empty__`` key stands for an empty sub-dict (ZeroMean)."""
+    tree: Dict[str, Any] = {}
+    for key, v in arrays.items():
+        if not key.startswith("params/"):
+            continue
+        parts = key[len("params/"):].split("/")
+        d = tree
+        for part in parts[:-1]:
+            d = d.setdefault(part, {})
+        if parts[-1] != "__empty__":
+            d[parts[-1]] = v
+    return tree
+
+
+def gpr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
+                   device: DeviceLike = None) -> GPR:
+    """A fitted and trained port GPR holding ``state`` on ``device``
+    (``None`` means the card).
+
+    ``state`` holds the attributes of :data:`GPR_ARRAY_KEYS` that the JAX
+    model has (``X_cnt``, ``X_scl``, ``Ur``, ``Ar``, ``P_cnt``, ``P_scl``
+    and ``P0`` are needed; ``Sigma_r`` and ``Vr`` are derived from ``Ar``
+    when absent, the training set defaults to ``(P0, Vr)``) and the GP
+    parameters as ``params/...`` keys.  ``meta`` carries ``n_features``,
+    ``gpr_type``, the three specs in checkpoint form (``mean_spec``,
+    ``kernel_spec``, ``likelihood_spec``) and optionally the other
+    :data:`GPR_META_KEYS`.  With ``engine='host'`` the trained state (the
+    parameters and ``Vr_sigma``) is kept on the host in float64, where that
+    engine computes.  Without ``params/`` keys the model is fitted but
+    untrained.  The snapshot matrix is not carried: ``X`` is a zero-memory
+    placeholder with the right shape."""
+    missing = [k for k in ("X_cnt", "X_scl", "Ur", "Ar", "P_cnt", "P_scl",
+                           "P0") if k not in state]
+    if missing:
+        raise KeyError(f"gpr_from_numpy: state lacks {missing}")
+    n = np.asarray(state["X_cnt"]).shape[0]
+    m = np.asarray(state["Ar"]).shape[0]
+    P = np.asarray(state["P"]) if "P" in state else np.zeros((m, 1))
+    placeholder = np.broadcast_to(np.zeros(()), (n, m))
+    gpr = GPR(placeholder, int(meta["n_features"]), state.get("xyz"), P,
+              gpr_type=meta.get("gpr_type", "SingleTask"), device=device)
+    for key in GPR_META_KEYS:
+        if key in meta and key not in ("n_features", "gpr_type"):
+            setattr(gpr, key, meta[key])
+    host = getattr(gpr, "engine", "device") == "host"
+    for key in GPR_ARRAY_KEYS:
+        if key in state and key not in ("xyz", "P"):
+            if host and key == "Vr_sigma":
+                value = tree_f64(state[key])
+            else:
+                value = as_tensor(state[key], gpr.device)
+            setattr(gpr, key, value)
+    if "Sigma_r" not in state:
+        gpr.Sigma_r = gpr.Ar.norm(dim=0)
+    if "Vr" not in state:
+        gpr.Vr = gpr.Ar / gpr.Sigma_r[None, :]
+    gpr.r = int(meta.get("r", gpr.Ar.shape[1]))
+    gpr.d = int(meta.get("d", P.shape[1]))
+    if not any(k.startswith("params/") for k in state):
+        return gpr
+    gpr.mean, gpr.kernel, gpr.likelihood = (spec_from_json(meta[k])
+                                            for k in SPEC_KEYS)
+    params = _unflatten_params(state)
+    gpr.params = (tree_f64(params) if host else
+                  tree_map(lambda a: as_tensor(a, gpr.device), params))
+    if not hasattr(gpr, "_train_X"):
+        gpr._train_X = gpr.P0
+    if not hasattr(gpr, "_train_Y"):
+        gpr._train_Y = gpr.Vr
+    gpr._refresh_api_compat()
+    return gpr
+

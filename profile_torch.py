@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the port's SPR path goes on one CUDA card.
+"""Where the time of the port's SPR and GP-ROM paths goes on one CUDA card.
 
 Run from the root of a checkout, with no arguments::
 
@@ -17,7 +17,12 @@ r = 14) and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
   device ran a kernel or a copy;
 * the class API at the flagship size, step by step (``fit``,
   ``optimal_placement``, ``train``, ``predict``, ``reconstruct``): host wall
-  time of each, synchronized, second of two runs.
+  time of each, synchronized, second of two runs;
+* ``gpr_end_to_end`` at the flagship size (r = 14, up to 1000 Adam
+  iterations): its NRMSE in float64 and fp32 on the card, and a
+  ``torch.profiler`` trace of one warmed fp32 call — device busy share,
+  device time by kernel, the share of ``csrc/chol.cu``, and the
+  device-to-host reads per call and per Adam iteration.
 
 It needs a card and stops without one.  Every number it prints was
 measured on the card named on its first line.
@@ -47,7 +52,7 @@ def main() -> int:
     import numpy as np
     from openmeasure_torch import SPR
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
-    from openmeasure_torch.pipelines import spr_end_to_end
+    from openmeasure_torch.pipelines import gpr_end_to_end, spr_end_to_end
     from openmeasure_torch.utils.metrics import nrmse
 
     smi = subprocess.run(
@@ -60,6 +65,9 @@ def main() -> int:
     sync = torch.cuda.synchronize
 
     def breakdown(fn, top=12):
+        """Trace one warmed call of ``fn``; print the window, the device
+        busy share and device time by kernel name.  Returns the per-name
+        ``{name: [us, count]}`` sums and the call's window in us."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -72,7 +80,7 @@ def main() -> int:
         dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
         if not dev_ev:
             print("    profiler: no device events recorded", flush=True)
-            return
+            return {}, 0.0
         t0 = min(e.time_range.start for e in events)
         t1 = max(e.time_range.end for e in events)
         spans = sorted((e.time_range.start, e.time_range.end)
@@ -98,6 +106,7 @@ def main() -> int:
                                       key=lambda kv: -kv[1][0])[:top]:
             print(f"      {us / 1e3:9.4f} ms {100 * us / total:5.1f} % "
                   f"x{cnt:<4d} {name[:90]}", flush=True)
+        return by_name, t1 - t0
 
     sets = {"flagship": ({}, None),
             "3D": (CUBE, 28)}
@@ -160,6 +169,32 @@ def main() -> int:
     print("  profile of fit:", flush=True)
     breakdown(lambda: SPR(d["X_train"], N_FEATURES, d["xyz"]).fit(
         select_modes="number", n_modes=R))
+
+    print("GP ROM, flagship: gpr_end_to_end (r = 14, Matérn-2.5, up to 1000 "
+          "Adam iterations)", flush=True)
+    d64 = make_flame_dataset(dtype=np.float64)
+    keys = ("X_train", "P_train", "P_test", "X_test")
+    g32 = [torch.as_tensor(d[k], device=dev) for k in keys]
+    g64 = [torch.as_tensor(d64[k], device=dev) for k in keys]
+    for tag, args in (("float64", g64), ("fp32", g32)):
+        res = gpr_end_to_end(*args, N_FEATURES, R)
+        print(f"  {tag} on the card: NRMSE {float(res.nrmse):.6e}, Adam "
+              f"iterations {res.iterations.tolist()}", flush=True)
+    print("  profile of one fp32 call:", flush=True)
+    by_name, window = breakdown(lambda: gpr_end_to_end(*g32, N_FEATURES, R),
+                                top=15)
+    iters = int(res.iterations.max())
+    total = sum(v[0] for v in by_name.values())
+    chol_us = sum(v[0] for k, v in by_name.items() if "chol_inv_logdet" in k)
+    chol_n = sum(v[1] for k, v in by_name.items() if "chol_inv_logdet" in k)
+    dtoh = sum(v[1] for k, v in by_name.items() if "DtoH" in k)
+    launches = sum(v[1] for v in by_name.values())
+    print(f"    csrc/chol.cu: {chol_us / 1e3:.4f} ms in {chol_n} launches, "
+          f"{100 * chol_us / max(total, 1e-9):.1f} % of device time; "
+          f"device-to-host copies {dtoh} per call ({dtoh / iters:.3f} per "
+          f"Adam iteration, {iters} iterations); {launches} device events, "
+          f"{launches / iters:.1f} per iteration; window per iteration "
+          f"{window / 1e3 / iters:.4f} ms", flush=True)
     print(smi, flush=True)
     return 0
 

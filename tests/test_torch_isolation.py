@@ -28,6 +28,9 @@ def test_import_without_jax_in_a_fresh_process():
         "import openmeasure_torch, openmeasure_torch.pipelines\n"
         "import openmeasure_torch.utils.convert, openmeasure_torch.utils.metrics\n"
         "import openmeasure_torch.linalg.qrcp_cuda, openmeasure_torch._build\n"
+        "import openmeasure_torch.linalg.chol, openmeasure_torch.linalg.chol_cuda\n"
+        "import openmeasure_torch.gp.kernels, openmeasure_torch.gp.exact_gp\n"
+        "import openmeasure_torch.gp.gpr, openmeasure_torch.core.host64\n"
         "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
         "       or m.startswith(('jax.', 'openmeasure_tpu.'))]\n"
         "assert sys.modules['jax'] is None and not bad, bad\n"
@@ -50,10 +53,15 @@ def test_no_jax_import_in_port_sources(path):
 def test_entry_points_default_to_the_card_and_raise_without_one():
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None legitimately runs there")
-    from openmeasure_torch import SPR
-    from openmeasure_torch.pipelines import spr_end_to_end
+    from openmeasure_torch import GPR, SPR
+    from openmeasure_torch.pipelines import gpr_end_to_end, spr_end_to_end
     X = np.random.default_rng(0).standard_normal((40, 6)) + 5.0
+    P = np.random.default_rng(1).standard_normal((6, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         spr_end_to_end(X, X[:, :2], n_features=2, r=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SPR(X, 2, np.zeros((20, 3)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpr_end_to_end(X, P, P[:2], X[:, :2], n_features=2, r=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPR(X, 2, np.zeros((20, 3)), P)

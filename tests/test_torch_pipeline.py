@@ -187,8 +187,8 @@ def test_unported_methods_raise_with_roadmap_item(flame, fitted_pair):
     with pytest.raises(NotImplementedError, match="item 7"):
         ts.adaptive_sampling(flame["P_train"])
     import openmeasure_torch
-    with pytest.raises(AttributeError, match="A.9"):
-        openmeasure_torch.GPR
+    with pytest.raises(AttributeError, match="A.10"):
+        openmeasure_torch.CoKriging
 
 
 def test_class_flow_operator_forms_match_jax(flame):
