@@ -175,25 +175,48 @@ def main() -> int:
     log("phase 1: csrc/qrcp.cu vs plain sweep, random fp32 panels "
         "(pivots must be equal)")
     rng = np.random.default_rng(0)
-    # (shape, k); the last panel is tall (r = 8192): the kernel keeps
-    # nothing of size r in shared memory, so it takes any r
-    for shape, k in (((14, 5000), 14), ((8, 20000), 8), ((14, 50000), 14),
-                     ((8192, 2048), 4)):
-        A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
-                            device=dev)
-        for scaled in (False, True):
-            s = (torch.as_tensor(np.geomspace(1.0, 1e4, shape[0]),
+    # (shape, k, row scales, layout); the kernel holds each block's
+    # columns in shared memory where they fit: all of them for the first
+    # panels, a few (r = 8192) or part (n = 2,000,000) of them, and none for
+    # a panel taller than one block's shared memory (r = 60,000).  "B.T" is
+    # the main path's layout, the transpose of a row-major (n, r) panel;
+    # "rows" a row-major (r, n) panel
+    regimes = set()
+    for shape, k, scales, layout in (
+            ((14, 5000), 14, (False, True), "rows"),
+            ((8, 20000), 8, (False, True), "rows"),
+            ((14, 50000), 14, (False, True), "rows"),
+            ((14, 50000), 14, (False, True), "B.T"),
+            ((8192, 2048), 4, (False, True), "rows"),
+            ((14, 2000000), 14, (False, True), "rows"),
+            ((14, 2000000), 14, (False, True), "B.T"),
+            ((60000, 300), 4, (True,), "rows")):
+        r, n = shape
+        bt = layout == "B.T"
+        plan = kern.device_plan(r, n, k, dev)
+        regime = ("all" if plan.resident_cols == n else
+                  "part" if plan.resident_cols else "none")
+        regimes.add(regime)
+        A = torch.as_tensor(rng.standard_normal((n, r) if bt else shape),
+                            dtype=torch.float32, device=dev)
+        A = A.T if bt else A
+        for scaled in scales:
+            s = (torch.as_tensor(np.geomspace(1.0, 1e4, r),
                                  dtype=torch.float32, device=dev)
                  if scaled else None)
             eq, pk, pp, err, n0 = kernel_vs_plain(A, k, s)
-            log(f"  {shape} k={k} row_scale={scaled}: pivots equal={eq}, "
+            log(f"  {shape} {layout} k={k} row_scale={scaled}: grid "
+                f"{plan.grid}, resident {plan.resident_cols}/{n} columns "
+                f"({regime}), pivots equal={eq}, "
                 f"max|Δnorms²|/max norm0²={err / n0:.3e}")
             if not eq:
                 fail(f"kernel pivots {pk.tolist()} != plain {pp.tolist()} "
-                     f"on random panel {shape} row_scale={scaled}")
-            if err > NORMS_REL_TOL * n0:
-                fail(f"final norms disagree: {err:.3e} > {NORMS_REL_TOL} × "
-                     f"{n0:.3e}")
+                     f"on random panel {shape} {layout} row_scale={scaled}")
+            if err != 0.0:
+                fail(f"final norms differ from the plain sweep's: {err:.3e}")
+        del A
+    if regimes != {"all", "part", "none"}:
+        fail(f"phase 1 covered the residency regimes {sorted(regimes)} only")
 
     # ---- data (host numpy from a seed, then one upload) ----------------
     t0 = time.perf_counter()
@@ -344,6 +367,21 @@ def main() -> int:
         log(f"  {tag} max_memory_allocated of one call at the default "
             f"refine: {peak:.1f} MiB")
 
+    def kernels_per_call(fn):
+        """Device kernels one call of ``fn`` runs (torch.profiler), or None
+        when the profiler records no device activity."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "memcpy" not in e.name.lower()
+                 and "memset" not in e.name.lower()]
+        return len(names) if names else None
+
     records = []
     for tag, replaces, launches in (
             ("flagship", "openmeasure_tpu/linalg/qrcp_pallas.py:66",
@@ -352,18 +390,29 @@ def main() -> int:
         A, dinv, err = panels[tag]
         r, n = A.shape
         k = 14
+        plan = kern.device_plan(r, n, k, dev)
         ms = loop_ms(lambda: kern.qrcp_pivots_cuda(A, k, row_scale=dinv),
                      n=50 if tag == "flagship" else 10)
         plain_ms = loop_ms(lambda: plain.qrcp_pivots(A * dinv[:, None], k),
                            n=5, warmup=1)
+        per_call = kernels_per_call(
+            lambda: kern.qrcp_pivots_cuda(A, k, row_scale=dinv))
         bytes_ms = (r * n * 4 + r * 4 + k * 4) / HBM_BYTES_PER_S * 1e3
         ops_ms = (2.0 * r * n * (k + 1) + 2.0 * n * k) / FP32_FLOPS * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         log(f"  qrcp {tag} {(r, n)}: kernel {ms:.4f} ms per call "
-            f"(1 + 2k = {1 + 2 * k} launches), plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms (bytes {bytes_ms:.5f}, ops "
-            f"{ops_ms:.5f}); per-step re-read traffic "
-            f"{(k + 1) * r * n * 4 / 1e9:.3f} GB")
+            f"({'not measured' if per_call is None else per_call} device "
+            f"kernel(s) per call by torch.profiler; grid {plan.grid} × "
+            f"{kern.THREADS} threads, {plan.barriers} grid barriers, "
+            f"{plan.smem_bytes} B shared memory a block), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bytes "
+            f"{bytes_ms:.5f}, ops {ops_ms:.5f}); resident "
+            f"{plan.resident_cols}/{n} columns "
+            f"({100.0 * plan.resident_cols / n:.1f} %), re-read from global "
+            f"memory per step {(n - plan.resident_cols) * r * 4 / 1e9:.4f} "
+            f"GB")
+        if per_call is not None and per_call != 1:
+            fail(f"one qrcp_pivots_cuda call ran {per_call} kernels, not 1")
         records.append({
             "name": f"qrcp_pivots_cuda[{tag}]", "route": "cuda",
             "source": "openmeasure_torch/csrc/qrcp.cu", "replaces": replaces,

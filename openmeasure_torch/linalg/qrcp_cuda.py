@@ -1,31 +1,84 @@
-"""Greedy QRCP pivots on the card: the CUDA kernel set of ``csrc/qrcp.cu``,
-its wrapper, launch counter and dispatch.
+"""Greedy QRCP pivots on the card: the persistent cooperative CUDA kernel
+of ``csrc/qrcp.cu``, its launch plan, wrapper, launch counter and dispatch.
 
-One kernel set is the port of both TPU kernels of
+One kernel is the port of both TPU kernels of
 ``openmeasure_tpu/linalg/qrcp_pallas.py`` (the in-VMEM ``_qrcp_kernel``
-and the HBM-streamed ``_qrcp_streamed_kernel``); their split follows the
-TPU's VMEM and has no counterpart on Hopper (see the note at the top of
-the CUDA source).  The kernel takes the optional ``row_scale`` in-kernel,
-as the streamed TPU kernel does, and reads the panel through its strides:
-the main path hands it ``B.T`` of a row-major (n, r) panel, whose column j
-is r contiguous floats, and no ``.contiguous()`` copy is made.
+and the HBM-streamed ``_qrcp_streamed_kernel``): a call is one
+cooperative launch of one block per SM, in which each block holds as many
+of its columns in shared memory as fit and reads the rest from global
+memory at each pivot step (see the note at the top of the CUDA source).
+The kernel takes the optional ``row_scale`` in-kernel, as the streamed TPU
+kernel does, and reads the panel through its strides: the main path hands
+it ``B.T`` of a row-major (n, r) panel, whose column j is r contiguous
+floats, and no ``.contiguous()`` copy is made.
 
-The plain version is :func:`openmeasure_torch.linalg.qrcp.qrcp_pivots`.
+The launch plan is computed here, by :func:`_plan`, from the device's SM
+count, shared memory and occupancy, so that it can be tested without a
+card.  The plain version is :func:`openmeasure_torch.linalg.qrcp.qrcp_pivots`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from .qrcp import qrcp_pivots
 
-K_MAX = 128     # pivot cap of the kernel (and of the TPU kernels)
-_BLOCKS_PER_SM = 8
+K_MAX = 128         # pivot cap of the kernel (and of the TPU kernels)
+THREADS = 1024      # threads per block, kThreads of csrc/qrcp.cu
+MIN_COLS = 32       # a block owns at least a warp's worth of columns
+Q_STAGE_FLOATS = 4096  # every block keeps Q (k·r floats) in shared memory
+                       # up to this size
+L1_KEEP = 64 * 1024  # shared memory left to L1 when columns are streamed
+                     # from global memory (see csrc/qrcp.cu)
 
 _lib = None
+_device_info: Dict[int, Tuple[int, int, int]] = {}
+
+
+class Plan(NamedTuple):
+    """How one call is laid out on the card."""
+    grid: int             # blocks, one launch, all co-resident
+    cols_per_block: int   # block b owns columns [b·c, min(n, (b+1)·c))
+    resident: int         # the first this-many of a block's columns live
+                          # in its shared memory (fewer in a short last block)
+    resident_cols: int    # resident columns over all blocks
+    q_floats: int         # floats of Q staged in shared memory: k·r, or 0
+    smem_bytes: int       # dynamic shared memory per block
+    barriers: int         # grid barriers in the call (2k)
+
+
+def _plan(r: int, n: int, k: int, sms: int, smem_optin: int,
+          blocks_per_sm: int) -> Plan:
+    """The launch plan of an (r, n) panel and k pivots on a device with
+    ``sms`` SMs, ``smem_optin`` bytes of dynamic shared memory a block may
+    take and ``blocks_per_sm`` co-resident blocks per SM at that size.
+
+    The grid is the co-resident maximum, and no more blocks than give each
+    at least ``MIN_COLS`` columns; columns are split in contiguous ranges
+    with no empty block; each block holds the leading columns of its range
+    in shared memory, r floats each, beside the staged Q: all of them when
+    they fit, else as many as fit in all but ``L1_KEEP`` bytes, which stay
+    L1 for the columns read from global memory."""
+    if sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"no co-resident block of the QRCP kernel fits on "
+                         f"this device (sms={sms}, blocks_per_sm="
+                         f"{blocks_per_sm})")
+    grid = max(1, min(sms * blocks_per_sm, -(-n // MIN_COLS)))
+    cpb = -(-n // grid)
+    grid = -(-n // cpb)
+    q_floats = k * r if k * r <= Q_STAGE_FLOATS else 0
+    budget = smem_optin - 4 * q_floats
+    if 4 * r * cpb <= budget:
+        resident = cpb
+    else:
+        resident = max(0, (budget - L1_KEEP) // (4 * r))
+    last = n - (grid - 1) * cpb
+    resident_cols = (grid - 1) * resident + min(resident, last)
+    return Plan(grid, cpb, resident, resident_cols, q_floats,
+                4 * (q_floats + resident * r), 2 * k)
 
 
 def _library() -> ctypes.CDLL:
@@ -37,12 +90,37 @@ def _library() -> ctypes.CDLL:
         lib = load_library("qrcp")
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.qrcp_pivots_launch.argtypes = [p, i32, i32, i64, i64, p, i32, i32,
+                                           i32, i32, i32, i32,
                                            p, p, p, p, p, p]
         lib.qrcp_pivots_launch.restype = ctypes.c_int
+        lib.qrcp_device_info.argtypes = [ctypes.POINTER(i32)] * 3
+        lib.qrcp_device_info.restype = ctypes.c_int
         lib.qrcp_threads.argtypes = []
         lib.qrcp_threads.restype = ctypes.c_int
+        if lib.qrcp_threads() != THREADS:
+            raise RuntimeError(f"csrc/qrcp.cu runs {lib.qrcp_threads()} "
+                               f"threads a block, the wrapper plans {THREADS}")
         _lib = lib
     return _lib
+
+
+def device_plan(r: int, n: int, k: int, device: torch.device) -> Plan:
+    """:func:`_plan` for a CUDA device, from its SM count, the kernel's
+    dynamic shared memory limit and occupancy (asked once per device)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    info = _device_info.get(idx)
+    if info is None:
+        lib = _library()
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        with torch.cuda.device(idx):
+            err = lib.qrcp_device_info(*[ctypes.byref(v) for v in vals])
+        if err != 0:
+            raise RuntimeError(f"csrc/qrcp.cu cannot run on this device: "
+                               f"cudaError {err}")
+        info = _device_info[idx] = tuple(v.value for v in vals)
+    sms, smem, per_sm = info
+    return _plan(r, n, k, sms, smem, per_sm)
 
 
 def _check(A: torch.Tensor, k: int, row_scale) -> None:
@@ -74,21 +152,19 @@ def _check(A: torch.Tensor, k: int, row_scale) -> None:
 
 def _launch(A: torch.Tensor, k: int, row_scale: Optional[torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Enqueue the kernel set; returns ``(pivots int32 (k,), final
+    """Enqueue the kernel's one launch; returns ``(pivots int32 (k,), final
     deflated norms² (n,))`` on A's device, without synchronizing."""
     _check(A, k, row_scale)
     lib = _library()
     r, n = A.shape
     sr, sc = A.stride()
     dev = A.device
+    plan = device_plan(r, n, k, dev)
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        threads = lib.qrcp_threads()
-        nblocks = max(1, min(-(-n // threads), _BLOCKS_PER_SM * sms))
         pivots = torch.empty(k, dtype=torch.int32, device=dev)
         norms = torch.empty(n, dtype=torch.float32, device=dev)
-        part_v = torch.empty(nblocks, dtype=torch.float32, device=dev)
-        part_i = torch.empty(nblocks, dtype=torch.int32, device=dev)
+        part_v = torch.empty(plan.grid, dtype=torch.float32, device=dev)
+        part_i = torch.empty(plan.grid, dtype=torch.int32, device=dev)
         Q = torch.empty(k * r, dtype=torch.float32, device=dev)
         scale = None
         if row_scale is not None:
@@ -96,7 +172,9 @@ def _launch(A: torch.Tensor, k: int, row_scale: Optional[torch.Tensor]
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qrcp_pivots_launch(
             A.data_ptr(), r, n, sr, sc,
-            None if scale is None else scale.data_ptr(), k, nblocks,
+            None if scale is None else scale.data_ptr(), k, plan.grid,
+            plan.cols_per_block, plan.resident, int(plan.q_floats > 0),
+            plan.smem_bytes,
             pivots.data_ptr(), norms.data_ptr(), part_v.data_ptr(),
             part_i.data_ptr(), Q.data_ptr(), stream)
     if err != 0:
@@ -114,7 +192,7 @@ def qrcp_pivots_cuda(A: torch.Tensor, k: int,
     Raises on anything the kernel does not take (a CPU tensor, another
     dtype, k outside [1, min(128, n)], overlapping strides) and when a
     launch is refused.  ``qrcp_pivots_cuda.launches`` counts the calls
-    that launched the kernel set."""
+    that launched the kernel (one launch each)."""
     return _launch(A, k, row_scale)[0]
 
 

@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of the port's SPR and GP-ROM paths goes on one CUDA card.
 
-Run from the root of a checkout, with no arguments::
+Run from the root of a checkout::
 
-    python3 profile_torch.py
+    python3 profile_torch.py [qrcp] [spr] [gp]
 
-For the synthetic flame sets of ``chip_smoke.py`` — flagship (165,258 × 41,
-r = 14) and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
+With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
+per call against k on random panels of the main path's shapes and layout
+(``B.T`` of a row-major (n, 14) panel; n = 4,224, 165,258 and 1,723,599),
+device time from the profiler's trace, with the launch plan (grid,
+resident share) beside it: the slope is the cost of one pivot step, and
+the small panel's slope, where every block holds 32 columns, is what the
+two grid barriers and the select cost alone.  ``spr`` and ``gp``: for the
+synthetic flame sets of ``chip_smoke.py`` — flagship (165,258 × 41, r = 14)
+and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
 
 * ``spr_end_to_end`` in float64 on the card, the port's own reference:
   its NRMSE and pivots;
@@ -63,6 +70,53 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
+    sections = set(sys.argv[1:]) or {"qrcp", "spr", "gp"}
+    unknown = sections - {"qrcp", "spr", "gp"}
+    if unknown:
+        print(f"profile_torch: unknown section(s) {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+
+    if "qrcp" in sections:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from openmeasure_torch.linalg import qrcp_cuda
+
+        def kernel_ms(fn, reps=5):
+            """Mean device time of the qrcp kernel over reps calls of fn,
+            from the profiler's trace (the host's time per call does not
+            enter)."""
+            fn()
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                sync()
+            us = [e.time_range.end - e.time_range.start
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "qrcp_kernel" in e.name]
+            return sum(us) / len(us) / 1e3 if us else float("nan")
+
+        print("QRCP kernel (csrc/qrcp.cu): device ms per call against k, "
+              "r = 14, row-scaled B.T panels (the main path's layout)",
+              flush=True)
+        g = torch.Generator(device=dev).manual_seed(0)
+        s = torch.logspace(0, 4, R, device=dev)
+        for n in (4224, 165258, 1723599):
+            A = torch.randn(n, R, generator=g, device=dev).T
+            plan = qrcp_cuda.device_plan(R, n, R, dev)
+            ts = {k: kernel_ms(lambda k=k: qrcp_cuda.qrcp_pivots_cuda(
+                A, k, row_scale=s)) for k in (1, 2, 7, 14)}
+            step = (ts[14] - ts[1]) / 13
+            print(f"  (14, {n}): grid {plan.grid}, "
+                  f"{plan.cols_per_block} columns a block, resident "
+                  f"{plan.resident_cols}/{n} "
+                  f"({100.0 * plan.resident_cols / n:.1f} %), "
+                  f"{plan.smem_bytes} B shared memory a block; "
+                  + ", ".join(f"k={k} {t:.4f} ms" for k, t in ts.items())
+                  + f"; per pivot step {1e3 * step:.2f} us, k=1 less one "
+                  f"step {ts[1] - step:.4f} ms", flush=True)
+            del A
 
     def breakdown(fn, top=12):
         """Trace one warmed call of ``fn``; print the window, the device
@@ -108,9 +162,10 @@ def main() -> int:
                   f"x{cnt:<4d} {name[:90]}", flush=True)
         return by_name, t1 - t0
 
+
     sets = {"flagship": ({}, None),
             "3D": (CUBE, 28)}
-    for tag, (kw, width) in sets.items():
+    for tag, (kw, width) in (sets.items() if "spr" in sections else ()):
         d32 = make_flame_dataset(dtype=np.float32, **kw)
         d64 = make_flame_dataset(dtype=np.float64, **kw)
         X, T = (torch.as_tensor(d32[k], device=dev)
@@ -134,67 +189,72 @@ def main() -> int:
         breakdown(lambda: spr_end_to_end(X, T, N_FEATURES, R,
                                          svd_width=width))
 
-    d = make_flame_dataset(dtype=np.float32)
-    T = torch.as_tensor(d["X_test"], device=dev)
-    print("class API, flagship, fp32 (host wall per step, synchronized):",
-          flush=True)
-    for run in range(2):
-        times = {}
+    if "spr" in sections:
+        d = make_flame_dataset(dtype=np.float32)
+        T = torch.as_tensor(d["X_test"], device=dev)
+        print("class API, flagship, fp32 (host wall per step, synchronized):",
+              flush=True)
+        for run in range(2):
+            times = {}
 
-        def step(name, fn):
-            sync()
-            t = time.perf_counter()
-            out = fn()
-            sync()
-            times[name] = (time.perf_counter() - t) * 1e3
-            return out
+            def step(name, fn):
+                sync()
+                t = time.perf_counter()
+                out = fn()
+                sync()
+                times[name] = (time.perf_counter() - t) * 1e3
+                return out
 
-        spr = SPR(d["X_train"], N_FEATURES, d["xyz"])
-        step("fit", lambda: spr.fit(select_modes="number", n_modes=R))
-        C = step("optimal_placement", spr.optimal_placement)
-        step("train", lambda: spr.train(C))
-        rows = C.argmax(dim=1).cpu().numpy()
-        ys = []
-        for j in range(T.shape[1]):
-            y = np.zeros((R, 3))
-            y[:, 0] = d["X_test"][rows, j]
-            y[:, 2] = rows // d["xyz"].shape[0]
-            ys.append(y)
-        ap, _ = step("predict", lambda: spr.predict(ys))
-        xr = step("reconstruct", lambda: spr.reconstruct(ap))
-        if run == 1:
-            print("  " + ", ".join(f"{k} {v:.3f} ms" for k, v in
-                                   times.items())
-                  + f"; NRMSE {float(nrmse(xr, T)):.6e}", flush=True)
-    print("  profile of fit:", flush=True)
-    breakdown(lambda: SPR(d["X_train"], N_FEATURES, d["xyz"]).fit(
-        select_modes="number", n_modes=R))
+            spr = SPR(d["X_train"], N_FEATURES, d["xyz"])
+            step("fit", lambda: spr.fit(select_modes="number", n_modes=R))
+            C = step("optimal_placement", spr.optimal_placement)
+            step("train", lambda: spr.train(C))
+            rows = C.argmax(dim=1).cpu().numpy()
+            ys = []
+            for j in range(T.shape[1]):
+                y = np.zeros((R, 3))
+                y[:, 0] = d["X_test"][rows, j]
+                y[:, 2] = rows // d["xyz"].shape[0]
+                ys.append(y)
+            ap, _ = step("predict", lambda: spr.predict(ys))
+            xr = step("reconstruct", lambda: spr.reconstruct(ap))
+            if run == 1:
+                print("  " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                       times.items())
+                      + f"; NRMSE {float(nrmse(xr, T)):.6e}", flush=True)
+        print("  profile of fit:", flush=True)
+        breakdown(lambda: SPR(d["X_train"], N_FEATURES, d["xyz"]).fit(
+            select_modes="number", n_modes=R))
 
-    print("GP ROM, flagship: gpr_end_to_end (r = 14, Matérn-2.5, up to 1000 "
-          "Adam iterations)", flush=True)
-    d64 = make_flame_dataset(dtype=np.float64)
-    keys = ("X_train", "P_train", "P_test", "X_test")
-    g32 = [torch.as_tensor(d[k], device=dev) for k in keys]
-    g64 = [torch.as_tensor(d64[k], device=dev) for k in keys]
-    for tag, args in (("float64", g64), ("fp32", g32)):
-        res = gpr_end_to_end(*args, N_FEATURES, R)
-        print(f"  {tag} on the card: NRMSE {float(res.nrmse):.6e}, Adam "
-              f"iterations {res.iterations.tolist()}", flush=True)
-    print("  profile of one fp32 call:", flush=True)
-    by_name, window = breakdown(lambda: gpr_end_to_end(*g32, N_FEATURES, R),
-                                top=15)
-    iters = int(res.iterations.max())
-    total = sum(v[0] for v in by_name.values())
-    chol_us = sum(v[0] for k, v in by_name.items() if "chol_inv_logdet" in k)
-    chol_n = sum(v[1] for k, v in by_name.items() if "chol_inv_logdet" in k)
-    dtoh = sum(v[1] for k, v in by_name.items() if "DtoH" in k)
-    launches = sum(v[1] for v in by_name.values())
-    print(f"    csrc/chol.cu: {chol_us / 1e3:.4f} ms in {chol_n} launches, "
-          f"{100 * chol_us / max(total, 1e-9):.1f} % of device time; "
-          f"device-to-host copies {dtoh} per call ({dtoh / iters:.3f} per "
-          f"Adam iteration, {iters} iterations); {launches} device events, "
-          f"{launches / iters:.1f} per iteration; window per iteration "
-          f"{window / 1e3 / iters:.4f} ms", flush=True)
+    if "gp" in sections:
+        d = make_flame_dataset(dtype=np.float32)
+        print("GP ROM, flagship: gpr_end_to_end (r = 14, Matérn-2.5, up to 1000 "
+              "Adam iterations)", flush=True)
+        d64 = make_flame_dataset(dtype=np.float64)
+        keys = ("X_train", "P_train", "P_test", "X_test")
+        g32 = [torch.as_tensor(d[k], device=dev) for k in keys]
+        g64 = [torch.as_tensor(d64[k], device=dev) for k in keys]
+        for tag, args in (("float64", g64), ("fp32", g32)):
+            res = gpr_end_to_end(*args, N_FEATURES, R)
+            print(f"  {tag} on the card: NRMSE {float(res.nrmse):.6e}, Adam "
+                  f"iterations {res.iterations.tolist()}", flush=True)
+        print("  profile of one fp32 call:", flush=True)
+        by_name, window = breakdown(
+            lambda: gpr_end_to_end(*g32, N_FEATURES, R), top=15)
+        iters = int(res.iterations.max())
+        total = sum(v[0] for v in by_name.values())
+        chol = [v for k, v in by_name.items() if "chol_inv_logdet" in k]
+        chol_us = sum(v[0] for v in chol)
+        chol_n = sum(v[1] for v in chol)
+        dtoh = sum(v[1] for k, v in by_name.items() if "DtoH" in k)
+        launches = sum(v[1] for v in by_name.values())
+        print(f"    csrc/chol.cu: {chol_us / 1e3:.4f} ms in {chol_n} "
+              f"launches, {100 * chol_us / max(total, 1e-9):.1f} % of device "
+              f"time; device-to-host copies {dtoh} per call "
+              f"({dtoh / iters:.3f} per Adam iteration, {iters} iterations); "
+              f"{launches} device events, {launches / iters:.1f} per "
+              f"iteration; window per iteration {window / 1e3 / iters:.4f} "
+              f"ms", flush=True)
     print(smi, flush=True)
     return 0
 

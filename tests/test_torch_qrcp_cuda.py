@@ -9,7 +9,8 @@ neither JAX nor the JAX package, so on a machine with a card it runs as::
 Tolerance: pivots EQUAL, and the final deflated norms² equal too — the
 kernel and the plain sweep sum in the same order from separately rounded
 products (see the note at the top of the CUDA source), so they agree bit
-for bit in fp32.
+for bit in fp32, whether the kernel holds a column in shared memory or
+reads it from global memory at each step.
 """
 
 import numpy as np
@@ -81,6 +82,73 @@ def test_kernel_reads_strided_views(card):
     P = torch.as_tensor(rng.standard_normal((6, 9000)), dtype=torch.float32,
                         device=card)
     _kernel_vs_plain(P[:, 1000:8000], 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,scaled,regime,layout", [
+    ((14, 50000), 14, False, "all", "rows"),
+    ((14, 50000), 14, True, "all", "B.T"),
+    ((14, 2000000), 14, False, "part", "rows"),
+    ((14, 2000000), 14, True, "part", "B.T"),
+    ((60000, 300), 4, True, "none", "rows"),
+])
+def test_kernel_residency_regimes(card, shape, k, scaled, regime, layout):
+    """Every column held in shared memory, part of them (more columns a
+    block than its shared memory holds), and none (a panel taller than one
+    block's shared memory); the panel row-major (r, n) or ``B.T`` of a
+    row-major (n, r) panel, the main path's layout."""
+    r, n = shape
+    plan = TQC.device_plan(r, n, k, card)
+    if regime == "all":
+        assert plan.resident_cols == n
+    elif regime == "part":
+        assert 0 < plan.resident_cols < n
+    else:
+        assert plan.resident_cols == 0
+    rng = np.random.default_rng(11)
+    if layout == "B.T":
+        A = torch.as_tensor(rng.standard_normal((n, r)), dtype=torch.float32,
+                            device=card).T
+    else:
+        A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=card)
+    s = (torch.as_tensor(np.geomspace(1.0, 1e4, r), dtype=torch.float32,
+                         device=card) if scaled else None)
+    _kernel_vs_plain(A, k, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 1), (14, 14), (6, 40)])
+def test_kernel_takes_every_column(card, shape):
+    """k = n: one column, a square panel and a wide-enough panel with every
+    column picked (the last steps choose among −inf norms but one)."""
+    rng = np.random.default_rng(12)
+    A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=card)
+    _kernel_vs_plain(A, shape[1])
+
+
+@pytest.mark.cuda
+def test_one_call_is_one_kernel(card):
+    """One qrcp_pivots_cuda call runs exactly one kernel on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(13)
+    A = torch.as_tensor(rng.standard_normal((14, 50000)),
+                        dtype=torch.float32, device=card)
+    s = torch.as_tensor(np.geomspace(1.0, 1e4, 14), dtype=torch.float32,
+                        device=card)
+    TQC.qrcp_pivots_cuda(A, 14, row_scale=s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TQC.qrcp_pivots_cuda(A, 14, row_scale=s)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert len(kernels) == 1 and "qrcp" in kernels[0], kernels
 
 
 @pytest.mark.cuda
