@@ -19,9 +19,14 @@ paths through their user entry points:
   reconstruct`` for SingleTask and MultiTask, and one ``engine='host'``
   run held against the port's float64 CPU result.
 
+The QRCP kernel is held bit-equal to the plain sweep (a panel with a NaN
+entry included), and ``qrcp_pivots_auto`` must return the plain sweep's
+pivots for k > n and for views the kernel cannot read through their
+strides; the chol kernel is held bit-equal to ``chol_inv_logdet_plain``.
 It checks each reconstruction's NRMSE, shows by the launch counters that
-each entry point ran through its kernel, and times the kernels and the
-pipelines with CUDA events.
+each entry point ran through its kernel, and times the pipelines and the
+QRCP kernel with CUDA events and the chol kernel by its device time in
+``torch.profiler``'s trace.
 
 Every failed check raises, and the script exits non-zero without its final
 line.  The last three lines are the card's name and power limit (as
@@ -57,15 +62,11 @@ NEAR_TIE_REL = 1e-5
 NORMS_REL_TOL = 1e-4
 # csrc/chol.cu against the Cholesky formulation (another algorithm): the
 # TPU kernel's bars (tests/test_tpu_kernels.py) — K⁻¹ within this fraction
-# of max|K⁻¹|, logdet within this absolute error
+# of max|K⁻¹|, logdet within this absolute error.  Against its plain
+# version (the kernel's fp32 operations in the kernel's order, the Gram a
+# fixed-order sequential sum) it must be EQUAL, bit for bit
 CHOL_KINV_REL = 5e-6
 CHOL_LOGDET_ABS = 5e-3
-# against its plain version (the same fp32 operations in the same order but
-# the Gram's sums), tightened from those bars by what the card showed on
-# its first run: K⁻¹ ≤ 1.8e-7 of max|K⁻¹| and logdet equal on every batch
-# up to p = 128
-CHOL_PLAIN_KINV_REL = 1e-6
-CHOL_PLAIN_LOGDET_ABS = 1e-5
 # GP ROM reconstruction NRMSE of the JAX package in float64 on the CPU, on
 # the same flagship data and settings (gpr_end_to_end; GPR class flow with
 # fit(select_modes="number", n_modes=14) and the default train()).  The
@@ -141,16 +142,24 @@ def main() -> int:
 
     def kernel_vs_plain(A, k, s):
         """Kernel and plain version on the same panel: (pivots equal?,
-        kernel pivots, plain pivots, max |Δ final norms²|, max norm0²)."""
+        kernel pivots, plain pivots, max |Δ final norms²| over the entries
+        finite in both, max finite norm0², non-finite norms in the same
+        places with the same values?)."""
         pk, nk = kern._launch(A, k, s)
         As = A * s[:, None] if s is not None else A
         pp, npl = plain._sweep(As, k)
         sync()
         fin = torch.isfinite(nk) & torch.isfinite(npl)
-        err = float(torch.max(torch.abs(nk[fin] - npl[fin])))
-        n0 = float(torch.max(torch.sum(As * As, dim=0)))
+        err = float(torch.max(torch.abs(nk[fin] - npl[fin]))) \
+            if bool(fin.any()) else 0.0
+        nan_k, nan_p = torch.isnan(nk), torch.isnan(npl)
+        same_nonfinite = bool(torch.equal(nan_k, nan_p)) and bool(torch.equal(
+            nk[~fin & ~nan_k], npl[~fin & ~nan_p]))
+        n0 = torch.sum(As * As, dim=0)
+        n0 = float(torch.max(n0[torch.isfinite(n0)]))
         pk, pp = pk.cpu().numpy(), pp.cpu().numpy()
-        return bool(np.array_equal(pk, pp)), pk, pp, err, n0
+        return (bool(np.array_equal(pk, pp)), pk, pp, err, n0,
+                same_nonfinite)
 
     def near_tie_report(A, s, pk, pp, n0):
         """First differing step and both candidates' float64 deflated
@@ -204,7 +213,7 @@ def main() -> int:
             s = (torch.as_tensor(np.geomspace(1.0, 1e4, r),
                                  dtype=torch.float32, device=dev)
                  if scaled else None)
-            eq, pk, pp, err, n0 = kernel_vs_plain(A, k, s)
+            eq, pk, pp, err, n0, same_nf = kernel_vs_plain(A, k, s)
             log(f"  {shape} {layout} k={k} row_scale={scaled}: grid "
                 f"{plan.grid}, resident {plan.resident_cols}/{n} columns "
                 f"({regime}), pivots equal={eq}, "
@@ -212,11 +221,57 @@ def main() -> int:
             if not eq:
                 fail(f"kernel pivots {pk.tolist()} != plain {pp.tolist()} "
                      f"on random panel {shape} {layout} row_scale={scaled}")
-            if err != 0.0:
+            if err != 0.0 or not same_nf:
                 fail(f"final norms differ from the plain sweep's: {err:.3e}")
         del A
     if regimes != {"all", "part", "none"}:
         fail(f"phase 1 covered the residency regimes {sorted(regimes)} only")
+
+    # a NaN entry: its column's norm is NaN, which torch.argmax ranks above
+    # every number (the lowest index among NaNs); the kernel must too
+    for shape, regime in (((14, 50000), "all"), ((14, 2000000), "part")):
+        r, n = shape
+        plan = kern.device_plan(r, n, 14, dev)
+        got = ("all" if plan.resident_cols == n else
+               "part" if plan.resident_cols else "none")
+        A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+        A[5, n // 3] = float("nan")
+        for scaled in (False, True):
+            s = (torch.as_tensor(np.geomspace(1.0, 1e4, r),
+                                 dtype=torch.float32, device=dev)
+                 if scaled else None)
+            eq, pk, pp, err, _, same_nf = kernel_vs_plain(A, 14, s)
+            log(f"  NaN at ({5}, {n // 3}) of {shape} ({got}) row_scale="
+                f"{scaled}: pivots equal={eq} {pk.tolist()}, finite norms "
+                f"equal={err == 0.0}, NaN/-inf norms in the same places="
+                f"{same_nf}")
+            if got != regime or not (eq and err == 0.0 and same_nf):
+                fail(f"NaN panel {shape}: kernel and plain sweep differ")
+        del A
+
+    # qrcp_pivots_auto returns on the card wherever it returns on the CPU:
+    # k > n takes the plain sweep, a view the kernel cannot read through
+    # its strides is copied first and then launches the kernel
+    A = torch.as_tensor(rng.standard_normal((14, 10)), dtype=torch.float32,
+                        device=dev)
+    base = torch.as_tensor(rng.standard_normal(20000), dtype=torch.float32,
+                           device=dev)
+    for what, V, k in (("k=12 > n=10", A, 12),
+                       ("expanded (14, 5000) stride 0",
+                        base[:5000].expand(14, 5000), 14),
+                       ("overlapping (14, 5000) strides (7, 1)",
+                        torch.as_strided(base, (14, 5000), (7, 1)), 14)):
+        before = kern.qrcp_pivots_cuda.launches
+        pa = kern.qrcp_pivots_auto(V, k)
+        launched = kern.qrcp_pivots_cuda.launches - before
+        pp = plain.qrcp_pivots(V, k)
+        sync()
+        eq = bool(torch.equal(pa, pp))
+        log(f"  qrcp_pivots_auto, {what}: kernel launches {launched}, pivots "
+            f"equal to the plain sweep's={eq}")
+        if not eq or launched != (0 if k > V.shape[1] else 1):
+            fail(f"qrcp_pivots_auto on {what} is not the plain sweep's")
 
     # ---- data (host numpy from a seed, then one upload) ----------------
     t0 = time.perf_counter()
@@ -296,7 +351,7 @@ def main() -> int:
                                ("3d", cube["X_train"], 28, res_c)):
         B, dinv = pipeline_panel(X, width=width)
         A = B.T
-        eq, pk, pp, err, n0 = kernel_vs_plain(A, 14, dinv)
+        eq, pk, pp, err, n0, _ = kernel_vs_plain(A, 14, dinv)
         same_as_pipeline = bool(np.array_equal(pk, res.pivots.cpu().numpy()))
         log(f"  {tag} B.T {tuple(A.shape)} strides {A.stride()}: pivots "
             f"equal={eq}, kernel pivots == pipeline's={same_as_pipeline}, "
@@ -422,10 +477,9 @@ def main() -> int:
             "library_ms": None})
 
     # ---- GP ROM: csrc/chol.cu against its plain versions ---------------
-    log("phase 5: csrc/chol.cu vs chol_inv_logdet_plain (bars: K⁻¹ ≤ "
-        f"{CHOL_PLAIN_KINV_REL} × max|K⁻¹|, logdet ≤ {CHOL_PLAIN_LOGDET_ABS}) "
-        f"and the Cholesky formulation (K⁻¹ ≤ {CHOL_KINV_REL}, logdet ≤ "
-        f"{CHOL_LOGDET_ABS}), random SPD fp32 batches")
+    log("phase 5: csrc/chol.cu vs chol_inv_logdet_plain (K⁻¹ and logdet "
+        f"equal) and the Cholesky formulation (K⁻¹ ≤ {CHOL_KINV_REL} × "
+        f"max|K⁻¹|, logdet ≤ {CHOL_LOGDET_ABS}), random SPD fp32 batches")
 
     def spd_batch(B, p, seed):
         g = np.random.default_rng(seed)
@@ -435,25 +489,26 @@ def main() -> int:
                                dtype=torch.float32, device=dev)
 
     def chol_errors(K):
-        """(K⁻¹ error / max|K⁻¹|, logdet error, max |ΔK⁻¹|) of the kernel
-        against the plain version, and the same two ratios against the
-        Cholesky formulation."""
+        """The kernel against the plain version — (K⁻¹ and logdet equal?,
+        max |ΔK⁻¹|, max |Δlogdet|) — and against the Cholesky formulation
+        — (K⁻¹ error / max|K⁻¹|, logdet error)."""
         kk, lk = chol_kern.chol_inv_logdet_cuda(K)
-        out = []
-        for kp, lp in (chol_plain.chol_inv_logdet_plain(K),
-                       chol_plain.chol_inv_logdet_torch(K)):
-            dk = float(torch.max(torch.abs(kk - kp)))
-            out.append((dk / float(torch.max(torch.abs(kp))),
-                        float(torch.max(torch.abs(lk - lp))), dk))
+        kp, lp = chol_plain.chol_inv_logdet_plain(K)
+        kt, lt = chol_plain.chol_inv_logdet_torch(K)
         sync()
-        return out
+        equal = bool(torch.equal(kk, kp)) and bool(torch.equal(lk, lp))
+        return ((equal, float(torch.max(torch.abs(kk - kp))),
+                 float(torch.max(torch.abs(lk - lp)))),
+                (float(torch.max(torch.abs(kk - kt)))
+                 / float(torch.max(torch.abs(kt))),
+                 float(torch.max(torch.abs(lk - lt)))))
 
-    for B, p in ((14, 41), (3, 17), (30, 64), (2, 128), (4, 1)):
-        (rk, rl, _), (tk, tl, _) = chol_errors(spd_batch(B, p, seed=p))
-        log(f"  ({B}, {p}, {p}): vs plain K⁻¹ {rk:.3e}, logdet {rl:.3e}; "
-            f"vs Cholesky K⁻¹ {tk:.3e}, logdet {tl:.3e}")
-        if not (rk <= CHOL_PLAIN_KINV_REL and rl <= CHOL_PLAIN_LOGDET_ABS):
-            fail(f"chol kernel disagrees with its plain version at "
+    for B, p in ((14, 41), (3, 17), (30, 64), (2, 128), (4, 1), (1, 100)):
+        (eq, dk, dl), (tk, tl) = chol_errors(spd_batch(B, p, seed=p))
+        log(f"  ({B}, {p}, {p}): vs plain equal={eq} (max |ΔK⁻¹| {dk:.3e}, "
+            f"|Δlogdet| {dl:.3e}); vs Cholesky K⁻¹ {tk:.3e}, logdet {tl:.3e}")
+        if not eq:
+            fail(f"chol kernel differs from its plain version at "
                  f"({B}, {p}, {p})")
         if not (tk <= CHOL_KINV_REL and tl <= CHOL_LOGDET_ABS):
             fail(f"chol kernel disagrees with the Cholesky formulation at "
@@ -562,12 +617,13 @@ def main() -> int:
             Kxx, gp_single.likelihood.noise(tp["likelihood"]))
         Kmain = (Kn + exact_gp._jitter(Kn.dtype)
                  * torch.eye(Kn.shape[-1], device=dev)).contiguous()
-    (rk, rl, dk), _ = chol_errors(Kmain)
-    log(f"  main-path matrices {tuple(Kmain.shape)}: vs plain K⁻¹ {rk:.3e} "
-        f"(max |ΔK⁻¹| {dk:.3e}), logdet {rl:.3e}")
-    if not (rk <= CHOL_PLAIN_KINV_REL and rl <= CHOL_PLAIN_LOGDET_ABS):
-        fail("chol kernel disagrees with its plain version on the main "
-             "path's matrices")
+    (eq, dk, dl), (tk, tl) = chol_errors(Kmain)
+    log(f"  main-path matrices {tuple(Kmain.shape)}: vs plain equal={eq} "
+        f"(max |ΔK⁻¹| {dk:.3e}, |Δlogdet| {dl:.3e}); vs Cholesky K⁻¹ "
+        f"{tk:.3e}, logdet {tl:.3e}")
+    if not eq:
+        fail("chol kernel differs from its plain version on the main path's "
+             "matrices")
     Bm, pm, _ = Kmain.shape
 
     def cusolver_composition():
@@ -576,7 +632,28 @@ def main() -> int:
         return kinv, 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)
                                      ).sum(-1)
 
-    chol_ms = loop_ms(lambda: chol_kern.chol_inv_logdet_cuda(Kmain), n=200)
+    def device_ms(fn, name, n=300):
+        """Median device time (ms) of the kernels named ``name`` over ``n``
+        back-to-back calls of ``fn``, from torch.profiler's trace, and how
+        many it saw (at least 100: the trace may miss its first few)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(us) < 100:
+            fail(f"torch.profiler saw {len(us)} {name} launches of {n}")
+        return statistics.median(us) / 1e3, len(us)
+
+    chol_ms, chol_n = device_ms(
+        lambda: chol_kern.chol_inv_logdet_cuda(Kmain), "chol_inv_logdet")
+    chol_call_ms = loop_ms(lambda: chol_kern.chol_inv_logdet_cuda(Kmain),
+                           n=200)
     chol_plain_ms = loop_ms(lambda: chol_plain.chol_inv_logdet_plain(Kmain),
                             n=5, warmup=1)
     cusolver_ms = loop_ms(cusolver_composition, n=200)
@@ -592,15 +669,19 @@ def main() -> int:
     chol_bound_ms = max(chol_bytes_ms, chol_ops_ms)
     log(f"  yardstick, not a port: cuSOLVER composition (cholesky_ex + "
         f"cholesky_inverse + log-diag, three calls) {cusolver_ms:.5f} ms")
-    log(f"  chol {tuple(Kmain.shape)}: kernel {chol_ms:.5f} ms per launch, "
-        f"plain {chol_plain_ms:.4f} ms, bound {chol_bound_ms:.6f} ms (bytes "
-        f"{chol_bytes_ms:.6f}, ops {chol_ops_ms:.6f}: {ops} operations)")
+    log(f"  chol {tuple(Kmain.shape)}: kernel {chol_ms:.5f} ms per launch "
+        f"(device time, median of {chol_n} launches by torch.profiler; "
+        f"{chol_call_ms:.5f} ms per wrapper call with the host's part, CUDA "
+        f"events over 200 back-to-back calls), plain {chol_plain_ms:.4f} ms, "
+        f"bound {chol_bound_ms:.6f} ms (bytes {chol_bytes_ms:.6f}, ops "
+        f"{chol_ops_ms:.6f}: {ops} operations)")
     records.append({
         "name": "chol_inv_logdet_cuda", "route": "cuda",
         "source": "openmeasure_torch/csrc/chol.cu",
         "replaces": "openmeasure_tpu/linalg/chol_pallas.py:85",
         "launches": sum(v[2] for v in gp_runs.values()),
-        "max_abs_err": dk, "ms": chol_ms, "plain_ms": chol_plain_ms,
+        "max_abs_err": max(dk, dl), "ms": chol_ms,
+        "plain_ms": chol_plain_ms,
         "bound_ms": chol_bound_ms,
         "bound_by": "bytes" if chol_bytes_ms >= chol_ops_ms else "operations",
         "library_ms": None})

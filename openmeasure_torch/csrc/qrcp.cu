@@ -19,7 +19,8 @@
 // diag(row_scale) @ A):
 //   norms[j] = sum_i (s_i A_ij)^2
 //   for each step i < k:
-//     j = argmax(norms), ties to the LOWEST index (LAPACK / jnp.argmax)
+//     j = argmax(norms), ties to the LOWEST index (LAPACK / jnp.argmax),
+//         a NaN norm above every number (torch.argmax / jnp.argmax)
 //     col = s * A[:, j];  two Gram-Schmidt passes against Q[:, :i]
 //     q = col / sqrt(max(|col|^2, FLT_MIN));  Q[:, i] = q
 //     norms -= (q^T (s * A))^2;  norms[j] = -inf;  pivots[i] = j
@@ -121,8 +122,12 @@ struct Args {
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
 
-// (v1, i1) beats (v2, i2): larger value, equal values to the lower index.
+// (v1, i1) beats (v2, i2) in the order of torch.argmax and jnp.argmax:
+// NaN above every number, then the larger value; equal values, and NaNs
+// among themselves, to the lower index.
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
+  const bool nan1 = v1 != v1, nan2 = v2 != v2;  // IEEE: only NaN != itself
+  if (nan1 || nan2) return nan1 && (!nan2 || i1 < i2);
   return v1 > v2 || (v1 == v2 && i1 < i2);
 }
 
@@ -238,9 +243,8 @@ __device__ __forceinline__ void select_step(const Args& a, int step, float* Qb) 
   }
   block_argmax(v, idx);
   if (threadIdx.x == 0) {
-    // only a panel with non-finite norms leaves no candidate; keep the
-    // gather in bounds (the plain version's argmax would pick a NaN)
-    if (idx < 0 || idx >= a.n) idx = 0;
+    // every block owns a column and `better` ranks every value, NaN and
+    // -inf included, so idx is a column of the panel
     s_j = idx;
     a.pivots[step] = idx;
   }

@@ -9,8 +9,8 @@ kernel computes both for the whole batch in one launch
 
 * :func:`chol_inv_logdet_plain` — the kernel's own arithmetic in torch ops
   (p Schur-complement steps, p forward-substitution steps for L⁻¹, the Gram
-  L⁻ᵀL⁻¹, logdet as the sum of the pivots' logs); the kernel's oracle on
-  the card.
+  L⁻ᵀL⁻¹ as a fixed-order sequential sum, logdet as the sum of the pivots'
+  logs); the kernel's oracle on the card, where the two agree bit for bit.
 * :func:`chol_inv_logdet_torch` — the Cholesky formulation, counterpart of
   ``chol_inv_logdet_jnp``: ``cholesky_ex`` + ``cholesky_solve`` +
   2·Σ log diag.  ``cholesky_ex`` and not ``cholesky``: the latter raises on
@@ -57,12 +57,29 @@ def chol_fits(B: int, p: int) -> bool:
     return p <= P_MAX
 
 
+def _gram_sequential(Y: torch.Tensor) -> torch.Tensor:
+    """``Yᵀ Y`` of a (B, p, p) batch as the kernel sums it: element (i, k)
+    is ``0 + t₀ + t₁ + …`` with ``t_j = Y[j, i] · Y[j, k]`` added one
+    separately rounded term at a time, j ascending.  For a lower-triangular
+    Y the terms below j = max(i, k) are exact zeros, so the sum equals the
+    kernel's, which starts there, bit for bit."""
+    acc = torch.zeros_like(Y)
+    for j in range(Y.shape[-1]):
+        acc = acc + Y[:, j, :, None] * Y[:, j, None, :]
+    return acc
+
+
 def chol_inv_logdet_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic on a (B, p, p) batch, in torch ops:
     ``(K⁻¹, logdet)``.  Each Schur step scales the pivot column by
-    rsqrt(d_j) and subtracts the rank-1 product from the trailing block;
-    Y = L⁻¹ by forward substitution, one row per step; K⁻¹ = YᵀY; logdet
-    sums log d_j sequentially."""
+    rsqrt(d_j) and subtracts its outer product from the trailing block;
+    Y = L⁻¹ by forward substitution, one row per step; K⁻¹ = YᵀY summed
+    in a fixed order (:func:`_gram_sequential`); logdet sums log d_j
+    sequentially.  Only the lower triangle of K is read, as by the kernel.
+
+    Every operation is a separately rounded elementwise op (no matmul, no
+    fused multiply-add), in the kernel's order, so on the card the kernel
+    and this version agree bit for bit on an SPD batch."""
     B, p, _ = K.shape
     A = K.clone()
     idx = torch.arange(p, device=K.device)
@@ -74,8 +91,7 @@ def chol_inv_logdet_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         rstd = torch.rsqrt(d)
         below = (idx > j).to(K.dtype)
         scol = A[:, :, j] * rstd[:, None] * below         # L[:, j] below j
-        srow = A[:, j, :] * rstd[:, None] * below
-        A = A - scol[:, :, None] * srow[:, None, :]        # Schur complement
+        A = A - scol[:, :, None] * scol[:, None, :]        # Schur complement
         rstds.append(rstd)
         scols.append(scol)
     Y = torch.eye(p, dtype=K.dtype, device=K.device).expand(B, p, p).clone()
@@ -83,7 +99,7 @@ def chol_inv_logdet_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         yrow = Y[:, j, :] * rstds[j][:, None]
         Y = Y - scols[j][:, :, None] * yrow[:, None, :]
         Y[:, j, :] = yrow
-    return Y.mT @ Y, ld
+    return _gram_sequential(Y), ld
 
 
 def chol_inv_logdet_torch(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -123,6 +123,14 @@ def device_plan(r: int, n: int, k: int, device: torch.device) -> Plan:
     return _plan(r, n, k, sms, smem, per_sm)
 
 
+def _strides_ok(shape: Tuple[int, int], strides: Tuple[int, int]) -> bool:
+    """Whether the kernel can read an (r, n) view through its strides: it
+    reads A[i * sr + j * sc], so both orders of a dense or column-sliced
+    panel are fine; zero or overlapping strides are not."""
+    (r, n), (sr, sc) = shape, strides
+    return sr >= 1 and sc >= 1 and (sr >= sc * n or sc >= sr * r)
+
+
 def _check(A: torch.Tensor, k: int, row_scale) -> None:
     if not isinstance(A, torch.Tensor) or not A.is_cuda:
         raise ValueError("qrcp_pivots_cuda needs a CUDA tensor; CPU tensors "
@@ -139,12 +147,9 @@ def _check(A: torch.Tensor, k: int, row_scale) -> None:
         raise ValueError(f"qrcp_pivots_cuda supports 1 <= k <= min({K_MAX}, n)"
                          f" (got k={k}, n={n}); use linalg.qrcp.qrcp_pivots "
                          "for larger pivot counts.")
-    sr, sc = A.stride()
-    # the kernel reads A[i * sr + j * sc]: both orders of a dense or
-    # column-sliced panel are fine; zero or overlapping strides are not
-    if not (sr >= 1 and sc >= 1 and (sr >= sc * n or sc >= sr * r)):
+    if not _strides_ok((r, n), A.stride()):
         raise ValueError(f"qrcp_pivots_cuda needs a non-overlapping (r, n) "
-                         f"view, got strides {(sr, sc)} for shape {(r, n)}")
+                         f"view, got strides {A.stride()} for shape {(r, n)}")
     if row_scale is not None:
         if not isinstance(row_scale, torch.Tensor) or row_scale.shape != (r,):
             raise ValueError("row_scale must be an (r,) tensor")
@@ -199,25 +204,53 @@ def qrcp_pivots_cuda(A: torch.Tensor, k: int,
 qrcp_pivots_cuda.launches = 0
 
 
+def _route(device_type: str, dtype: torch.dtype, k: int, shape: tuple,
+           strides: tuple, scale_shape: Optional[tuple] = None) -> str:
+    """Where :func:`qrcp_pivots_auto` sends a panel: ``"kernel"``,
+    ``"copy"`` (a contiguous copy, then the kernel) or ``"plain"`` (the
+    plain sweep on the panel's device).
+
+    The kernel takes a CUDA fp32 (r, n) panel with 1 ≤ k ≤ min(128, n) and
+    an (r,) row scale; a view it cannot read through its strides (a zero
+    stride, overlapping rows or columns) is copied first.  Everything else
+    takes the plain sweep, as on the CPU, so the call returns on the card
+    wherever it returns on the CPU."""
+    if device_type != "cuda" or dtype != torch.float32 or len(shape) != 2:
+        return "plain"
+    r, n = shape
+    if not (1 <= r < 2 ** 31 and 1 <= n < 2 ** 31 and 1 <= k <= min(K_MAX, n)):
+        return "plain"
+    if scale_shape is not None and tuple(scale_shape) != (r,):
+        return "plain"
+    return "kernel" if _strides_ok(shape, strides) else "copy"
+
+
 def qrcp_pivots_auto(A: torch.Tensor, k: int,
                      row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """QRCP pivots of ``diag(row_scale) @ A`` by the best route for the
     tensor's device, mirroring the JAX package's gate (keyed there on
-    ``jax.default_backend() == "tpu"``, here on the tensor's device):
+    ``jax.default_backend() == "tpu"``, here on the tensor's device; see
+    :func:`_route`):
 
-    * a CUDA fp32 panel with k ≤ 128 goes to the CUDA kernel, with
-      ``row_scale`` applied in-kernel (it raises if k exceeds n);
+    * a CUDA fp32 panel with 1 ≤ k ≤ min(128, n) goes to the CUDA kernel,
+      with ``row_scale`` applied in-kernel; a zero-stride or overlapping
+      view is copied to a contiguous panel first;
     * a CPU tensor takes the plain sweep :func:`qrcp_pivots`, with
       ``row_scale`` applied to a copy;
-    * a CUDA tensor that is not fp32, or asks for k > 128, takes the plain
-      sweep on the card, as the JAX package sends such panels to its jnp
-      sweep.
+    * a CUDA tensor that is not fp32, or asks for k > 128 or k > n, takes
+      the plain sweep on the card, as the JAX package sends such panels to
+      its jnp sweep.
 
     There is no fallback: a kernel that fails to build or launch raises.
     """
-    if A.is_cuda and A.dtype == torch.float32 and k <= K_MAX:
+    if row_scale is not None:
+        row_scale = torch.as_tensor(row_scale, dtype=A.dtype, device=A.device)
+    route = _route(A.device.type, A.dtype, k, tuple(A.shape), A.stride(),
+                   None if row_scale is None else tuple(row_scale.shape))
+    if route == "copy":
+        A = A.clone(memory_format=torch.contiguous_format)
+    if route != "plain":
         return qrcp_pivots_cuda(A, k, row_scale=row_scale)
     if row_scale is not None:
-        A = A * torch.as_tensor(row_scale, dtype=A.dtype,
-                                device=A.device)[:, None]
+        A = A * row_scale[:, None]
     return qrcp_pivots(A, k)

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout::
 
-    python3 profile_torch.py [qrcp] [spr] [gp]
+    python3 profile_torch.py [qrcp] [chol] [spr] [gp]
 
 With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
 per call against k on random panels of the main path's shapes and layout
@@ -11,7 +11,11 @@ per call against k on random panels of the main path's shapes and layout
 device time from the profiler's trace, with the launch plan (grid,
 resident share) beside it: the slope is the cost of one pivot step, and
 the small panel's slope, where every block holds 32 columns, is what the
-two grid barriers and the select cost alone.  ``spr`` and ``gp``: for the
+two grid barriers and the select cost alone.  ``chol``: the batched SPD
+inverse kernel's device time per launch (median of 200 launches in the
+trace) on random SPD (14, p, p) batches, p = 41 (the GP trainer's shape),
+17, 64 and 128, beside the wrapper's time per call with the host's part
+(CUDA events over 200 back-to-back calls).  ``spr`` and ``gp``: for the
 synthetic flame sets of ``chip_smoke.py`` — flagship (165,258 × 41, r = 14)
 and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
 
@@ -70,8 +74,8 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    sections = set(sys.argv[1:]) or {"qrcp", "spr", "gp"}
-    unknown = sections - {"qrcp", "spr", "gp"}
+    sections = set(sys.argv[1:]) or {"qrcp", "chol", "spr", "gp"}
+    unknown = sections - {"qrcp", "chol", "spr", "gp"}
     if unknown:
         print(f"profile_torch: unknown section(s) {sorted(unknown)}",
               file=sys.stderr)
@@ -117,6 +121,44 @@ def main() -> int:
                   + f"; per pivot step {1e3 * step:.2f} us, k=1 less one "
                   f"step {ts[1] - step:.4f} ms", flush=True)
             del A
+
+    if "chol" in sections:
+        import statistics
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from openmeasure_torch.linalg import chol_cuda
+
+        print("chol kernel (csrc/chol.cu): device ms per launch, median of "
+              "200 launches in the trace; wrapper ms per call with the "
+              "host's part", flush=True)
+        for p in (41, 17, 64, 128):
+            rng = np.random.default_rng(p)
+            Q = rng.standard_normal((R, p, p))
+            K = torch.as_tensor(np.einsum("bij,bkj->bik", Q, Q) / p
+                                + 0.5 * np.eye(p), dtype=torch.float32,
+                                device=dev)
+            call = lambda: chol_cuda.chol_inv_logdet_cuda(K)  # noqa: E731
+            call()
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(200):
+                    call()
+                sync()
+            us = [e.time_range.end - e.time_range.start
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "chol_inv_logdet" in e.name]
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(200):
+                call()
+            b.record()
+            sync()
+            dev_ms = statistics.median(us) / 1e3 if us else float("nan")
+            print(f"  ({R}, {p}, {p}): device {dev_ms:.5f} ms per launch "
+                  f"(median of {len(us)}; min {min(us, default=0) / 1e3:.5f},"
+                  f" max {max(us, default=0) / 1e3:.5f}), wrapper "
+                  f"{a.elapsed_time(b) / 200:.5f} ms per call", flush=True)
 
     def breakdown(fn, top=12):
         """Trace one warmed call of ``fn``; print the window, the device

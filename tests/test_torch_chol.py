@@ -6,6 +6,9 @@ Tolerances:
   ``rtol=1e-12`` (K⁻¹ relative to its largest entry) and ``1e-12``
   absolute on logdet: two LAPACK Cholesky factorizations of the same
   well-conditioned (cond ≲ 1e2) matrices differ by a few ulps.
+* ``chol_inv_logdet_plain``'s fixed-order Gram against ``YᵀY`` in float64
+  to p · 1e-15 of its largest entry, and against the kernel's own order
+  (the sum from j = max(i, k)) bit for bit in fp32.
 * ``chol_inv_logdet_plain`` against the Pallas kernel body itself, run in
   interpret mode, in fp32: 2e-6 of max|K⁻¹| and 5e-5 absolute on logdet —
   the same arithmetic step for step, but the Gram and rsqrt are rounded by
@@ -84,6 +87,53 @@ def test_plain_matches_torch_formulation_f64():
     assert float(torch.max(torch.abs(ka - kb))) <= 1e-11 * float(
         torch.max(torch.abs(kb)))
     assert float(torch.max(torch.abs(la - lb))) <= 1e-11
+
+
+@pytest.mark.parametrize("B,p", [(3, 17), (2, 41), (1, 128)])
+def test_sequential_gram_equals_matmul_f64(B, p):
+    """The plain version's Gram, a fixed-order sequential sum, is YᵀY: in
+    float64 it agrees with the matmul to round-off (p terms of eps)."""
+    rng = np.random.default_rng(p)
+    Y = torch.as_tensor(np.tril(rng.standard_normal((B, p, p))))
+    got = TC._gram_sequential(Y)
+    want = Y.mT @ Y
+    assert float(torch.max(torch.abs(got - want))) <= \
+        p * 1e-15 * float(torch.max(torch.abs(want)))
+
+
+def test_sequential_gram_is_the_kernels_sum_bit_for_bit():
+    """For a lower-triangular fp32 Y the terms below j = max(i, k) are exact
+    zeros, so the sum from j = 0 equals the kernel's sum, which starts at
+    max(i, k), bit for bit (here summed in numpy float32, one rounding a
+    step)."""
+    rng = np.random.default_rng(31)
+    p = 9
+    Y = np.tril(rng.standard_normal((2, p, p))).astype(np.float32)
+    Y[0, 4, 2] = -0.0                       # a signed zero in the triangle
+    got = TC._gram_sequential(torch.as_tensor(Y)).numpy()
+    want = np.zeros_like(Y)
+    for b in range(2):
+        for i in range(p):
+            for k in range(p):
+                acc = np.float32(0.0)
+                for j in range(max(i, k), p):
+                    acc = np.float32(acc + np.float32(Y[b, j, i] * Y[b, j, k]))
+                want[b, i, k] = acc
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_plain_reads_only_the_lower_triangle():
+    """As the kernel does: garbage above the diagonal changes nothing."""
+    K = torch.as_tensor(_spd(3, 12, seed=6, dtype=np.float32))
+    G = K.clone()
+    iu = torch.triu_indices(12, 12, offset=1)
+    G[:, iu[0], iu[1]] = torch.as_tensor(
+        np.random.default_rng(7).standard_normal((3, iu.shape[1])),
+        dtype=torch.float32)
+    ka, la = TC.chol_inv_logdet_plain(K)
+    kb, lb = TC.chol_inv_logdet_plain(G)
+    assert torch.equal(ka, kb) and torch.equal(la, lb)
 
 
 def test_auto_on_cpu_takes_the_cholesky_formulation():

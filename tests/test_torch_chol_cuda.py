@@ -9,9 +9,9 @@ neither JAX nor the JAX package, so on a machine with a card it runs as::
 Tolerances (fp32): against the Cholesky formulation (another algorithm)
 K⁻¹ within 5e-6 of max|K⁻¹| and logdet within 5e-3 absolute — the TPU
 kernel's bars (``tests/test_tpu_kernels.py``); against
-``chol_inv_logdet_plain`` (the same fp32 operations in the same order, but
-the Gram's sums) tightened to 1e-6 and 1e-5, five times what the card
-showed on its first run (K⁻¹ ≤ 1.8e-7 of max, logdet equal).
+``chol_inv_logdet_plain`` EQUAL, bit for bit: the plain version runs the
+kernel's fp32 operations in the kernel's order, its Gram included (a
+fixed-order sequential sum), each separately rounded.
 """
 
 import numpy as np
@@ -22,7 +22,6 @@ from openmeasure_torch.linalg import chol as TC
 from openmeasure_torch.linalg import chol_cuda as TCC
 
 KINV_REL, LOGDET_ABS = 5e-6, 5e-3
-PLAIN_KINV_REL, PLAIN_LOGDET_ABS = 1e-6, 1e-5
 
 
 @pytest.fixture
@@ -47,19 +46,73 @@ def _close(got, want, kinv_rel, logdet_abs):
     assert float(torch.max(torch.abs(lg - lw))) <= logdet_abs
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,p", [(14, 41), (3, 17), (30, 64), (2, 128),
-                                 (5, 1), (1, 100)])
-def test_kernel_matches_both_plain_versions(card, B, p):
-    K = _spd(B, p, seed=p, device=card)
+def _equal(got, want):
+    (kg, lg), (kw, lw) = got, want
+    assert torch.equal(kg, kw), float(torch.max(torch.abs(kg - kw)))
+    assert torch.equal(lg, lw), float(torch.max(torch.abs(lg - lw)))
+
+
+def _kernel_vs_plain_versions(K):
+    B, p, _ = K.shape
     before = TCC.chol_inv_logdet_cuda.launches
     got = TCC.chol_inv_logdet_cuda(K)
     torch.cuda.synchronize()
     assert TCC.chol_inv_logdet_cuda.launches == before + 1
     assert got[0].shape == (B, p, p) and got[1].shape == (B,)
-    _close(got, TC.chol_inv_logdet_plain(K), PLAIN_KINV_REL,
-           PLAIN_LOGDET_ABS)
+    _equal(got, TC.chol_inv_logdet_plain(K))
     _close(got, TC.chol_inv_logdet_torch(K), KINV_REL, LOGDET_ABS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,p", [(14, 41), (3, 17), (30, 64), (2, 128),
+                                 (5, 1), (1, 100)])
+def test_kernel_matches_both_plain_versions(card, B, p):
+    _kernel_vs_plain_versions(_spd(B, p, seed=p, device=card))
+
+
+@pytest.mark.cuda
+def test_kernel_on_gp_trainer_matrices(card):
+    """A (14, 41, 41) batch built as the GP trainer builds it: a scaled
+    Matérn-2.5 kernel of 41 three-parameter points, one lengthscale and
+    outputscale per mode, plus the likelihood's noise and the fp32 jitter."""
+    from openmeasure_torch.gp import exact_gp
+    from openmeasure_torch.gp.kernels import MaternKernel, ScaleKernel
+    rng = np.random.default_rng(16)
+    P = torch.as_tensor(rng.uniform(0.0, 1.0, (41, 3)), dtype=torch.float32,
+                        device=card)
+    par = {"raw_outputscale": torch.as_tensor(
+               rng.uniform(-1.0, 1.0, 14), dtype=torch.float32, device=card),
+           "base": {"raw_lengthscale": torch.as_tensor(
+               rng.uniform(-2.0, 0.0, (14, 1)), dtype=torch.float32,
+               device=card)}}
+    # noise and lengthscales that keep cond(K) ≲ 1e3, where the fp32
+    # Cholesky formulation's bars hold (on the CPU: K⁻¹ within 1.9e-6 of
+    # max of the float64 inverse)
+    noise = torch.as_tensor(rng.uniform(1e-2, 1e-1, 14), dtype=torch.float32,
+                            device=card)
+    Kn = exact_gp._add_noise(ScaleKernel(MaternKernel(2.5))(par, P, P), noise)
+    K = Kn + exact_gp._jitter(Kn.dtype) * torch.eye(41, device=card)
+    assert K.shape == (14, 41, 41)
+    _kernel_vs_plain_versions(K.contiguous())
+
+
+@pytest.mark.cuda
+def test_one_call_is_one_kernel(card):
+    """One chol_inv_logdet_cuda call runs exactly one kernel on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    K = _spd(14, 41, seed=17, device=card)
+    TCC.chol_inv_logdet_cuda(K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TCC.chol_inv_logdet_cuda(K)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert len(kernels) == 1 and "chol" in kernels[0], kernels
 
 
 @pytest.mark.cuda

@@ -10,7 +10,9 @@ Tolerance: pivots EQUAL, and the final deflated norms² equal too — the
 kernel and the plain sweep sum in the same order from separately rounded
 products (see the note at the top of the CUDA source), so they agree bit
 for bit in fp32, whether the kernel holds a column in shared memory or
-reads it from global memory at each step.
+reads it from global memory at each step.  A panel with a NaN entry gives
+NaN norms in the same places (``assert_array_equal`` counts NaN equal to
+NaN), and the same pivots: NaN ranks first, as in ``torch.argmax``.
 """
 
 import numpy as np
@@ -180,6 +182,57 @@ def test_auto_dispatch_on_card(card):
     assert TQC.qrcp_pivots_cuda.launches == before + 1
     np.testing.assert_array_equal(p32.cpu().numpy(),
                                   TQ.qrcp_pivots(A.float(), 12).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("shape,regime", [((14, 50000), "all"),
+                                          ((14, 2000000), "part")])
+def test_nan_column_matches_plain(card, shape, regime, scaled):
+    """A NaN entry: the kernel ranks a NaN norm above every number and the
+    lowest-index NaN first, as torch.argmax does, so pivots and final
+    norms equal the plain sweep's, NaNs in the same places, whether the
+    columns are read from shared or global memory."""
+    r, n = shape
+    plan = TQC.device_plan(r, n, 14, card)
+    assert (plan.resident_cols == n) == (regime == "all")
+    rng = np.random.default_rng(14)
+    A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=card)
+    A[5, n // 3] = float("nan")
+    s = (torch.as_tensor(np.geomspace(1.0, 1e4, r), dtype=torch.float32,
+                         device=card) if scaled else None)
+    _kernel_vs_plain(A, 14, s)
+    pk = TQC.qrcp_pivots_cuda(A, 14, row_scale=s).cpu()
+    assert pk[0] == n // 3 and pk[1:].tolist() == [0, 1] * 6 + [0]
+
+
+@pytest.mark.cuda
+def test_auto_returns_where_the_cpu_path_returns(card):
+    """k > n takes the plain sweep on the card; an expanded or overlapping
+    view is copied and launches the kernel; both return the plain sweep's
+    pivots, while qrcp_pivots_cuda itself keeps refusing them."""
+    rng = np.random.default_rng(15)
+    A = torch.as_tensor(rng.standard_normal((14, 10)), dtype=torch.float32,
+                        device=card)
+    before = TQC.qrcp_pivots_cuda.launches
+    got = TQC.qrcp_pivots_auto(A, 12)
+    assert TQC.qrcp_pivots_cuda.launches == before
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  TQ.qrcp_pivots(A, 12).cpu().numpy())
+    base = torch.as_tensor(rng.standard_normal(3000), dtype=torch.float32,
+                           device=card)
+    s = torch.as_tensor(np.geomspace(1.0, 1e3, 6), dtype=torch.float32,
+                        device=card)
+    for v in (base[:500].expand(6, 500), base[:6, None].expand(6, 500),
+              torch.as_strided(base, (6, 500), (7, 1))):
+        with pytest.raises(ValueError, match="non-overlapping"):
+            TQC.qrcp_pivots_cuda(v, 6)
+        before = TQC.qrcp_pivots_cuda.launches
+        got = TQC.qrcp_pivots_auto(v, 6, row_scale=s)
+        assert TQC.qrcp_pivots_cuda.launches == before + 1
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), TQ.qrcp_pivots(v * s[:, None], 6).cpu().numpy())
 
 
 @pytest.mark.cuda
