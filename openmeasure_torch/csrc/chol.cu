@@ -8,43 +8,63 @@
 //
 // What it computes (the TPU kernel's arithmetic, without its padding to a
 // multiple of 8 and its lane broadcast of logdet):
-//   Schur:   for j < p:  d_j = A[j][j];  logdet += log(d_j)
-//            A[i][k] -= (A[i][j] * rsqrt(d_j)) * (A[k][j] * rsqrt(d_j))
-//                        for i, k > j          (the trailing Schur complement)
-//            L[i][j] = A[i][j] * rsqrt(d_j)   for i > j,   L[j][j] = sqrt(d_j)
-//   Forward: Y = L^-1 by forward substitution, row j scaled by rsqrt(d_j)
+//   Schur:   for j < p:  d_j = A[j][j];  r_j = rsqrt(d_j)
+//            A[i][k] -= (A[i][j] * r_j) * (A[k][j] * r_j)
+//                        for i >= k > j       (the trailing Schur complement)
+//            L[i][j] = A[i][j] * r_j   for i > j
+//   Forward: Y = L^-1 by forward substitution, row j scaled by r_j
 //   Gram:    K^-1 = Y^T Y, computed here, inside the kernel
-// No guard against a non-SPD input, as on the TPU: a non-positive pivot
-// gives NaN through log and rsqrt, and the NaN flows out.
+//   logdet:  sum of log(d_j), j ascending
+// Only the lower triangle of K is read.  No guard against a non-SPD input,
+// as on the TPU: a non-positive pivot gives NaN through log and rsqrt, and
+// the NaN flows out.
 //
 // What bounds it.  Each input byte read once and each output byte written
 // once: 2 B p^2 + B floats, 0.19 MB at (14, 41, 41), 0.056 us at 3.35 TB/s;
-// about p^3 operations per matrix on the triangles (Schur, forward
-// substitution and Gram, about p^3/3 each), 0.99 M at the main shape,
-// 0.015 us at 67 TFLOP/s fp32.  Neither is what the kernel meets: it runs
-// 2p + 3 dependent steps per matrix, each closed by a block barrier, so its
-// time is latency, whatever B is, as long as B <= the SM count.  On an H100
-// 80GB HBM3 at 700 W it takes 0.037 ms at the main shape (chip_smoke.py),
-// about 430 ns a step.
+// about p^3 operations per matrix on the triangles, 0.99 M at the main
+// shape, 0.015 us at 67 TFLOP/s fp32.  Neither is what the kernel meets:
+// a matrix's factorization is a chain of p dependent Schur steps, then p
+// dependent substitution steps per column, so its time is latency, whatever
+// B is, as long as B <= the SM count.
 //
-// What the design does about it.  The simple, correct form first: one
-// thread block per matrix, the matrix (A, then L in its lower triangle) and
-// Y in dynamic shared memory, one barrier per Schur step and one per
-// forward-substitution step; every read after the load and before the
-// output is from shared memory.  B = 14 blocks fill 14 of the 132 SMs.  A
-// warp per column, or registers in place of shared memory, is the next
-// step.
+// What the design does about it.  One thread block per matrix, and in each
+// phase as little as possible on the chain of dependent steps:
+//   * Schur, right-looking, one lower-triangle element per thread, held in
+//     registers (up to kSlots a thread: 861 elements, one each, at p = 41;
+//     8256, at most 9 each, at p = 128).  Elements are numbered from the
+//     last column to the first, so those still live at step j are a prefix
+//     of the numbering and every thread owns its share of them; the
+//     numbering is decoded once, before the loop.  At step j the owners of
+//     column j have published its values in a double-buffered shared
+//     column, and the owner of its diagonal r_j; each thread forms
+//     li = col[i] r_j and lk = col[k] r_j and updates its register, the
+//     owners of column j + 1 publish theirs into the other buffer, and one
+//     barrier closes the step.  The owners of column j write L[:, j] and
+//     d_j to shared memory for the later phases.
+//   * Forward substitution, one warp per column c of Y (columns dealt to
+//     the warps back and forth, so each warp's steps add up to about p),
+//     rows in registers (4 a lane), no block barrier: at step j the lane
+//     holding row j forms y_j = Y[j][c] r_j and broadcasts it by a shuffle,
+//     and every lane subtracts L[i][j] y_j from its rows i > j.  The warp
+//     writes y_j into Y in shared memory; one barrier ends the phase.
+//   * Gram: each thread sums its lower-triangle elements of Y^T Y, j
+//     ascending from max(i, k), and writes (i, k) and (k, i) from one sum.
+//     Warp 0 first takes the logs of the d_j in its lanes and sums them in
+//     order through shuffles.
 //
 // Rounding follows the plain version (linalg/chol.py, chol_inv_logdet_plain)
 // term by term: separately rounded products and differences (the _rn
-// intrinsics: no FMA contraction), the logdet summed sequentially over j,
-// and the forward substitution's update order.  Only the Gram's sums run in
-// another order than the plain version's batched matmul.
+// intrinsics: no FMA contraction), the Gram's and the logdet's sums
+// sequential in j, the forward substitution's updates in j order.  The two
+// agree bit for bit.
 //
-// Shared memory: 2 p ld floats with ld = p rounded up to odd (a column read
-// across a warp then hits 32 different banks), 132 KB at p = 128, above
-// the 48 KB a launch gets by default: the launch asks for it with
-// cudaFuncSetAttribute first.
+// Block size: one thread an element of the lower triangle, rounded up to a
+// warp, at most 1024 (block_threads).  Shared memory: 2 p ld floats of
+// dynamic shared memory for L and Y, with ld = p rounded up to odd (a
+// column read across a warp then hits 32 different banks), 132 KB at
+// p = 128, above the 48 KB a launch gets by default: the launch asks for
+// it with cudaFuncSetAttribute first; plus 1.5 KB of static shared memory
+// for the published columns and the r_j.
 
 #include <cuda_runtime.h>
 
@@ -52,87 +72,151 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxP = 128;  // the TPU kernel's unroll cap (_P_CAP)
+constexpr int kMaxThreads = 1024;
+constexpr int kSlots = (kMaxP * (kMaxP + 1) / 2 + kMaxThreads - 1) / kMaxThreads;  // 9
+constexpr int kRowSlots = kMaxP / 32;  // rows a lane holds in the substitution
+constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kStaticSmem = 3 * kMaxP * sizeof(float);  // col[2][kMaxP], rs[kMaxP]
 
 __host__ __device__ __forceinline__ int odd_ld(int p) { return p | 1; }
 
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ __forceinline__ int block_threads(int p) {
+  const int t = (p * (p + 1) / 2 + 31) / 32 * 32;
+  return t < kMaxThreads ? t : kMaxThreads;
+}
+
+// Element e of the lower triangle, numbered from the last column to the
+// first and down each column: e = q (q + 1) / 2 + t with q = p - 1 - k and
+// t = i - k in [0, q].  Returns (i, k).
+__device__ __forceinline__ int2 trailing_element(int e, int p) {
+  int q = static_cast<int>((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
+  while (q * (q + 1) / 2 > e) --q;
+  while ((q + 1) * (q + 2) / 2 <= e) ++q;
+  const int k = p - 1 - q;
+  return make_int2(k + e - q * (q + 1) / 2, k);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1)
 chol_inv_logdet_kernel(const float* __restrict__ K, int p, float* __restrict__ kinv,
                        float* __restrict__ logdet) {
   extern __shared__ float smem[];
+  __shared__ float col[2][kMaxP];  // column j of the Schur complement at step j
+  __shared__ float rs[kMaxP];      // r_j = rsqrt(d_j)
   const int ld = odd_ld(p);
-  float* A = smem;           // p x ld: A, then L below the diagonal
-  float* Y = smem + p * ld;  // p x ld: L^-1 (lower triangle)
+  float* L = smem;           // p x ld: L below the diagonal, d_j on it
+  float* Y = smem + p * ld;  // p x ld: Y = L^-1 in its lower triangle
   const int64_t off = static_cast<int64_t>(blockIdx.x) * p * p;
-  const int tid = threadIdx.x;
-  const int pp = p * p;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int ne = p * (p + 1) / 2;
 
-  for (int t = tid; t < pp; t += blockDim.x) {
-    const int i = t / p, k = t - i * p;
-    A[i * ld + k] = K[off + t];
-    Y[i * ld + k] = (i == k) ? 1.f : 0.f;
+  // This thread's elements e = tid + s nt, loaded from the lower triangle;
+  // column 0 and r_0 published.
+  float a[kSlots];
+  int ik[kSlots];  // (i << 8) | k
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int e = tid + s * nt;
+    a[s] = 0.f;
+    ik[s] = 0;
+    if (e < ne) {
+      const int2 el = trailing_element(e, p);
+      ik[s] = (el.x << 8) | el.y;
+      a[s] = K[off + el.x * p + el.y];
+      if (el.y == 0) {
+        col[0][el.x] = a[s];
+        if (el.x == 0) rs[0] = rsqrtf(a[s]);
+      }
+    }
   }
   __syncthreads();
 
-  // Schur steps.  Step j reads column j and the pivot (both left untouched
-  // by step j) and updates the trailing lower triangle i >= k > j; the
-  // diagonal keeps each pivot d_j from its step on.
+  // Schur steps.  Columns j..p-1 are the elements e < m (m + 1) / 2 with
+  // m = p - j: column j is written out to L, the rest updated.
   for (int j = 0; j < p; ++j) {
-    const float r = rsqrtf(A[j * ld + j]);
-    const int m = p - 1 - j;
-    for (int t = tid; t < m * m; t += blockDim.x) {
-      const int i = j + 1 + t / m, k = j + 1 + t % m;
-      if (k <= i) {
-        const float li = __fmul_rn(A[i * ld + j], r);
-        const float lk = __fmul_rn(A[k * ld + j], r);
-        A[i * ld + k] = __fsub_rn(A[i * ld + k], __fmul_rn(li, lk));
+    const float* cj = col[j & 1];
+    float* cn = col[(j + 1) & 1];
+    const float r = rs[j];
+    const int m = p - j;
+    const int live = m * (m + 1) / 2;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (tid + s * nt >= live) break;
+      const int i = ik[s] >> 8, k = ik[s] & 0xff;
+      if (k == j) {
+        L[i * ld + j] = i == j ? a[s] : __fmul_rn(a[s], r);
+      } else {
+        const float li = __fmul_rn(cj[i], r);
+        const float lk = __fmul_rn(cj[k], r);
+        a[s] = __fsub_rn(a[s], __fmul_rn(li, lk));
+        if (k == j + 1) {
+          cn[i] = a[s];
+          if (i == k) rs[k] = rsqrtf(a[s]);
+        }
       }
     }
     __syncthreads();
   }
 
-  // L below the diagonal: L[i][j] = A[i][j] * rsqrt(d_j).
-  for (int t = tid; t < pp; t += blockDim.x) {
-    const int i = t / p, j = t - i * p;
-    if (i > j) A[i * ld + j] = __fmul_rn(A[i * ld + j], rsqrtf(A[j * ld + j]));
-  }
-  __syncthreads();
-
-  // Forward substitution L Y = I.  Step j takes row j as it stands (the
-  // identity minus the earlier steps' updates), scales it by rsqrt(d_j) on
-  // the fly, and updates the rows below; row j itself is scaled once all
-  // steps are done, so step j writes nothing that step j reads.
-  for (int j = 0; j < p; ++j) {
-    const float r = rsqrtf(A[j * ld + j]);
-    const int m = p - 1 - j, w = j + 1;  // rows j+1..p-1, columns 0..j
-    for (int t = tid; t < m * w; t += blockDim.x) {
-      const int i = j + 1 + t / w, c = t % w;
-      const float y = __fmul_rn(Y[j * ld + c], r);
-      Y[i * ld + c] = __fsub_rn(Y[i * ld + c], __fmul_rn(A[i * ld + j], y));
+  // Forward substitution L Y = I, one warp a column c, lane l holding rows
+  // s * 32 + l; pass q deals columns q nw .. q nw + nw - 1 to the warps,
+  // in reverse order on odd passes.
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  float rr[kRowSlots];
+#pragma unroll
+  for (int s = 0; s < kRowSlots; ++s) rr[s] = s * 32 + lane < p ? rs[s * 32 + lane] : 0.f;
+  for (int q = 0;; ++q) {
+    const int c = (q & 1) ? (q + 1) * nw - 1 - warp : q * nw + warp;
+    if (c >= p) break;
+    float y[kRowSlots];
+#pragma unroll
+    for (int s = 0; s < kRowSlots; ++s) y[s] = s * 32 + lane == c ? 1.f : 0.f;
+#pragma unroll
+    for (int sj = 0; sj < kRowSlots; ++sj) {
+      const int j1 = min(p, sj * 32 + 32);
+      for (int j = max(c, sj * 32); j < j1; ++j) {
+        const int jl = j - sj * 32;
+        const float yj = __shfl_sync(kFull, __fmul_rn(y[sj], rr[sj]), jl);
+        if (lane == jl) Y[j * ld + c] = yj;
+#pragma unroll
+        for (int s = sj; s < kRowSlots; ++s) {
+          const int i = s * 32 + lane;
+          if (i > j && i < p) y[s] = __fsub_rn(y[s], __fmul_rn(L[i * ld + j], yj));
+        }
+      }
     }
-    __syncthreads();
-  }
-  for (int t = tid; t < pp; t += blockDim.x) {
-    const int j = t / p, c = t - j * p;
-    if (c <= j) Y[j * ld + c] = __fmul_rn(Y[j * ld + c], rsqrtf(A[j * ld + j]));
   }
   __syncthreads();
 
-  // K^-1 = Y^T Y: element (i, k) sums Y[j][i] Y[j][k] over j >= max(i, k)
-  // (Y is lower triangular); consecutive threads take consecutive k.
-  for (int t = tid; t < pp; t += blockDim.x) {
-    const int i = t / p, k = t - i * p;
+  // logdet: the logs in parallel, their sum in order (warp 0).
+  if (warp == 0) {
+    float lg[kRowSlots];
+#pragma unroll
+    for (int s = 0; s < kRowSlots; ++s) {
+      const int i = s * 32 + lane;
+      lg[s] = i < p ? logf(L[i * ld + i]) : 0.f;
+    }
     float acc = 0.f;
-    for (int j = i > k ? i : k; j < p; ++j)
-      acc = __fadd_rn(acc, __fmul_rn(Y[j * ld + i], Y[j * ld + k]));
-    kinv[off + t] = acc;
+#pragma unroll
+    for (int sj = 0; sj < kRowSlots; ++sj) {
+#pragma unroll
+      for (int jl = 0; jl < 32; ++jl) {
+        const float t = __shfl_sync(kFull, lg[sj], jl);
+        if (sj * 32 + jl < p) acc = __fadd_rn(acc, t);
+      }
+    }
+    if (lane == 0) logdet[blockIdx.x] = acc;
   }
 
-  if (tid == 0) {
-    float s = 0.f;
-    for (int j = 0; j < p; ++j) s = __fadd_rn(s, logf(A[j * ld + j]));
-    logdet[blockIdx.x] = s;
+  // K^-1 = Y^T Y: element (i, k), i >= k, sums Y[j][i] Y[j][k] over j >= i.
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    if (tid + s * nt >= ne) break;
+    const int i = ik[s] >> 8, k = ik[s] & 0xff;
+    float acc = 0.f;
+    for (int j = i; j < p; ++j) acc = __fadd_rn(acc, __fmul_rn(Y[j * ld + i], Y[j * ld + k]));
+    kinv[off + i * p + k] = acc;
+    if (i != k) kinv[off + k * p + i] = acc;
   }
 }
 
@@ -148,13 +232,13 @@ int chol_inv_logdet_launch(const float* K, int batch, int p, float* kinv, float*
   if (batch < 1 || p < 1 || p > kMaxP) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * sizeof(float) * static_cast<size_t>(p) * odd_ld(p);
   cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
+  if (smem + kStaticSmem > 48 * 1024) {
     err = cudaFuncSetAttribute(chol_inv_logdet_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  chol_inv_logdet_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  chol_inv_logdet_kernel<<<batch, block_threads(p), smem, static_cast<cudaStream_t>(stream)>>>(
       K, p, kinv, logdet);
   err = cudaGetLastError();
   return static_cast<int>(err);
