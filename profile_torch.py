@@ -15,7 +15,9 @@ two grid barriers and the select cost alone.  ``chol``: the batched SPD
 inverse kernel's device time per launch (median of 200 launches in the
 trace) on random SPD (14, p, p) batches, p = 41 (the GP trainer's shape),
 17, 64 and 128, beside the wrapper's time per call with the host's part
-(CUDA events over 200 back-to-back calls).  ``spr`` and ``gp``: for the
+(CUDA events over 200 back-to-back calls), and the kernel's cycles by
+phase (prologue, Schur, substitution, logdet, Gram) from a build of
+``csrc/chol.cu`` with ``-DCHOL_STAMPS``.  ``spr`` and ``gp``: for the
 synthetic flame sets of ``chip_smoke.py`` — flagship (165,258 × 41, r = 14)
 and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
 
@@ -159,6 +161,51 @@ def main() -> int:
                   f"(median of {len(us)}; min {min(us, default=0) / 1e3:.5f},"
                   f" max {max(us, default=0) / 1e3:.5f}), wrapper "
                   f"{a.elapsed_time(b) / 200:.5f} ms per call", flush=True)
+
+        # where a launch's time goes: csrc/chol.cu built again with
+        # -DCHOL_STAMPS, which stamps clock64() and the global timer after a
+        # barrier at the end of each phase (the stamps' barriers add a little)
+        import ctypes
+        from openmeasure_torch import _build
+        so = _build.BUILD_DIR / "libchol-stamps.so"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DCHOL_STAMPS",
+                        "-o", str(so), str(_build.CSRC / "chol.cu")],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.chol_inv_logdet_launch.argtypes = [vp, i32, i32, vp, vp, vp]
+        lib.chol_set_stamps.argtypes = [vp]
+        phases = ("prologue", "Schur", "substitution", "logdet", "Gram")
+        print("chol kernel phases (clock64 stamps of a -DCHOL_STAMPS build, "
+              "median over the blocks of one launch after 20):", flush=True)
+        for p in (41, 17, 64, 128):
+            rng = np.random.default_rng(p)
+            Q = rng.standard_normal((R, p, p))
+            K = torch.as_tensor(np.einsum("bij,bkj->bik", Q, Q) / p
+                                + 0.5 * np.eye(p), dtype=torch.float32,
+                                device=dev)
+            kinv, ld = torch.empty_like(K), torch.empty(R, device=dev)
+            stamps = torch.zeros(R * 16, dtype=torch.int64, device=dev)
+            if lib.chol_set_stamps(stamps.data_ptr()) != 0:
+                raise RuntimeError("chol_set_stamps failed")
+            stream = torch.cuda.current_stream().cuda_stream
+            for _ in range(20):
+                if lib.chol_inv_logdet_launch(K.data_ptr(), R, p,
+                                              kinv.data_ptr(), ld.data_ptr(),
+                                              stream) != 0:
+                    raise RuntimeError("stamped chol launch failed")
+            sync()
+            st = stamps.view(R, 8, 2)[:, :6].cpu().numpy()
+            cyc = np.median(np.diff(st[:, :, 0], axis=1), axis=0)
+            total = float(np.median(st[:, 5, 0] - st[:, 0, 0]))
+            ns = float(np.median(st[:, 5, 1] - st[:, 0, 1]))
+            print(f"  ({R}, {p}, {p}): {total:.0f} cycles a block, "
+                  f"{ns / 1e3:.3f} us ({total / ns:.3f} GHz); "
+                  + ", ".join(f"{name} {c:.0f} ({100 * c / total:.1f} %)"
+                              for name, c in zip(phases, cyc))
+                  + f"; a Schur step {cyc[1] / p:.0f} cycles, a substitution "
+                  f"step on the longest column {cyc[2] / p:.0f}", flush=True)
 
     def breakdown(fn, top=12):
         """Trace one warmed call of ``fn``; print the window, the device
