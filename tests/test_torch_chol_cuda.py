@@ -100,7 +100,7 @@ def test_kernel_on_gp_trainer_matrices(card):
 @pytest.mark.cuda
 def test_one_call_is_one_kernel(card):
     """One chol_inv_logdet_cuda call runs exactly one kernel on the card.
-    The trace can miss the first device events of a session, so a few
+    The trace can miss the first device events it records, so a few
     fills of a marker run first, and fills are left out of the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
