@@ -20,9 +20,11 @@ paths through their user entry points:
   run held against the port's float64 CPU result.
 
 The QRCP kernel is held bit-equal to the plain sweep (a panel with a NaN
-entry included), and ``qrcp_pivots_auto`` must return the plain sweep's
-pivots for k > n and for views the kernel cannot read through their
-strides; the chol kernel is held bit-equal to ``chol_inv_logdet_plain``.
+entry, and k > n, included), and ``qrcp_pivots_auto`` must launch it and
+return the plain sweep's pivots for k > n and for views the kernel cannot
+read through their strides; the chol kernel is held bit-equal to
+``chol_inv_logdet_plain``, and on the main path's matrices against a
+float64 Cholesky within a bar scaled by their condition number.
 It checks each reconstruction's NRMSE, shows by the launch counters that
 each entry point ran through its kernel, and times the pipelines and the
 QRCP kernel with CUDA events and the chol kernel by its device time in
@@ -67,6 +69,14 @@ NORMS_REL_TOL = 1e-4
 # fixed-order sequential sum) it must be EQUAL, bit for bit
 CHOL_KINV_REL = 5e-6
 CHOL_LOGDET_ABS = 5e-3
+# the main path's matrices are trained GP kernel matrices (noise ≥ 1e-4
+# beside eigenvalues of order p), too ill-conditioned for those bars in
+# fp32: there the kernel and the fp32 Cholesky formulation are each held
+# against a float64 Cholesky of the same fp32 matrices, per matrix within
+# p · cond₂(K) · u (the first-order forward error of a Cholesky-based
+# inverse, u the fp32 unit round-off) in K⁻¹ relative to max|K⁻¹| and in
+# logdet absolute
+FP32_UNIT_ROUNDOFF = 2.0 ** -24
 # GP ROM reconstruction NRMSE of the JAX package in float64 on the CPU, on
 # the same flagship data and settings (gpr_end_to_end; GPR class flow with
 # fit(select_modes="number", n_modes=14) and the default train()).  The
@@ -114,6 +124,7 @@ def main() -> int:
     from openmeasure_torch.pipelines import gpr_end_to_end, spr_end_to_end
     from openmeasure_torch.utils.convert import gpr_from_numpy
     from openmeasure_torch.utils.metrics import nrmse
+    from openmeasure_torch.utils.timing import device_ms
 
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -250,9 +261,25 @@ def main() -> int:
                 fail(f"NaN panel {shape}: kernel and plain sweep differ")
         del A
 
-    # qrcp_pivots_auto returns on the card wherever it returns on the CPU:
-    # k > n takes the plain sweep, a view the kernel cannot read through
-    # its strides is copied first and then launches the kernel
+    # k > n (and k > r): once every column is a pivot, each later step
+    # picks column 0 in both; k r > 4096 keeps Q in global memory
+    for shape, k in (((14, 10), 12), ((8, 5), 7), ((200, 30), 40)):
+        A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev)
+        for scaled in (False, True):
+            s = (torch.as_tensor(np.geomspace(1.0, 1e4, shape[0]),
+                                 dtype=torch.float32, device=dev)
+                 if scaled else None)
+            eq, pk, pp, err, _, same_nf = kernel_vs_plain(A, k, s)
+            log(f"  k={k} > n={shape[1]}, {shape} row_scale={scaled}: pivots "
+                f"equal={eq} {pk.tolist()}, finite norms equal={err == 0.0}, "
+                f"-inf norms in the same places={same_nf}")
+            if not (eq and err == 0.0 and same_nf):
+                fail(f"k > n on {shape}: kernel and plain sweep differ")
+
+    # qrcp_pivots_auto launches the kernel for every CUDA fp32 panel with
+    # k <= 128: k > n directly, a view the kernel cannot read through its
+    # strides after a contiguous copy
     A = torch.as_tensor(rng.standard_normal((14, 10)), dtype=torch.float32,
                         device=dev)
     base = torch.as_tensor(rng.standard_normal(20000), dtype=torch.float32,
@@ -270,7 +297,7 @@ def main() -> int:
         eq = bool(torch.equal(pa, pp))
         log(f"  qrcp_pivots_auto, {what}: kernel launches {launched}, pivots "
             f"equal to the plain sweep's={eq}")
-        if not eq or launched != (0 if k > V.shape[1] else 1):
+        if not eq or launched != 1:
             fail(f"qrcp_pivots_auto on {what} is not the plain sweep's")
 
     # ---- data (host numpy from a seed, then one upload) ----------------
@@ -619,12 +646,48 @@ def main() -> int:
                  * torch.eye(Kn.shape[-1], device=dev)).contiguous()
     (eq, dk, dl), (tk, tl) = chol_errors(Kmain)
     log(f"  main-path matrices {tuple(Kmain.shape)}: vs plain equal={eq} "
-        f"(max |ΔK⁻¹| {dk:.3e}, |Δlogdet| {dl:.3e}); vs Cholesky K⁻¹ "
-        f"{tk:.3e}, logdet {tl:.3e}")
+        f"(max |ΔK⁻¹| {dk:.3e}, |Δlogdet| {dl:.3e}); vs the fp32 Cholesky "
+        f"formulation K⁻¹ {tk:.3e}, logdet {tl:.3e}")
     if not eq:
         fail("chol kernel differs from its plain version on the main path's "
              "matrices")
     Bm, pm, _ = Kmain.shape
+
+    # which side is nearer the float64 answer: the kernel or the fp32
+    # Cholesky formulation (cuSOLVER's cholesky_ex + cholesky_solve)
+    K64 = Kmain.double()
+    L64 = torch.linalg.cholesky(K64)
+    kinv64 = torch.cholesky_inverse(L64)
+    ld64 = 2.0 * torch.log(torch.diagonal(L64, dim1=-2, dim2=-1)).sum(-1)
+    cond = torch.linalg.cond(K64)
+    cond_bar = pm * cond * FP32_UNIT_ROUNDOFF
+
+    def vs_float64(kinv, ld):
+        rel = ((kinv.double() - kinv64).abs().amax((-2, -1))
+               / kinv64.abs().amax((-2, -1)))
+        return rel, (ld.double() - ld64).abs()
+
+    rel_k, ld_k = vs_float64(*chol_kern.chol_inv_logdet_cuda(Kmain))
+    rel_t, ld_t = vs_float64(*chol_plain.chol_inv_logdet_torch(Kmain))
+    sync()
+    log(f"  main-path matrices against float64 Cholesky: cond₂(K) "
+        f"{float(cond.min()):.4e} to {float(cond.max()):.4e}; K⁻¹ error / "
+        f"max|K⁻¹|: kernel max {float(rel_k.max()):.4e}, fp32 Cholesky "
+        f"formulation max {float(rel_t.max()):.4e}, the kernel nearer on "
+        f"{int((rel_k < rel_t).sum())} of {Bm} matrices (equal on "
+        f"{int((rel_k == rel_t).sum())}); |Δlogdet|: kernel max "
+        f"{float(ld_k.max()):.4e}, fp32 Cholesky formulation max "
+        f"{float(ld_t.max()):.4e}, the kernel nearer on "
+        f"{int((ld_k < ld_t).sum())}; kernel's worst error / (p · cond · u) "
+        f"{float(torch.maximum(rel_k, ld_k).div(cond_bar).max()):.4e} "
+        f"(≤ 1)")
+    for b in range(Bm):
+        log(f"    matrix {b}: cond₂ {float(cond[b]):.4e}, K⁻¹ kernel "
+            f"{float(rel_k[b]):.4e} Cholesky {float(rel_t[b]):.4e}, logdet "
+            f"kernel {float(ld_k[b]):.4e} Cholesky {float(ld_t[b]):.4e}")
+    if not bool(((rel_k <= cond_bar) & (ld_k <= cond_bar)).all()):
+        fail("chol kernel is further from the float64 Cholesky than "
+             "p · cond(K) · u on the main path's matrices")
 
     def cusolver_composition():
         L, _ = torch.linalg.cholesky_ex(Kmain)
@@ -632,26 +695,10 @@ def main() -> int:
         return kinv, 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)
                                      ).sum(-1)
 
-    def device_ms(fn, name, n=300):
-        """Median device time (ms) of the kernels named ``name`` over ``n``
-        back-to-back calls of ``fn``, from torch.profiler's trace, and how
-        many it saw (at least 100: the trace may miss its first few)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            sync()
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and name in e.name]
-        if len(us) < 100:
-            fail(f"torch.profiler saw {len(us)} {name} launches of {n}")
-        return statistics.median(us) / 1e3, len(us)
-
     chol_ms, chol_n = device_ms(
-        lambda: chol_kern.chol_inv_logdet_cuda(Kmain), "chol_inv_logdet")
+        lambda: chol_kern.chol_inv_logdet_cuda(Kmain), "chol_inv_logdet", 300)
+    if chol_n < 100:
+        fail(f"torch.profiler saw {chol_n} chol_inv_logdet launches of 300")
     chol_call_ms = loop_ms(lambda: chol_kern.chol_inv_logdet_cuda(Kmain),
                            n=200)
     chol_plain_ms = loop_ms(lambda: chol_plain.chol_inv_logdet_plain(Kmain),

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface, ``build/openmeasure_torch/lib<name>-<hash>.so`` beside
 the package, where the hash covers the flags and every source of
-``csrc/``: an edited source builds anew, an unchanged one is reused.  The
+``csrc/``: an edited source builds anew, an unchanged one is reused.  A
+build with preprocessor defines (a measuring variant, such as
+``-DCHOL_STAMPS``) is a library of its own, its defines in its name.  The
 compiler writes to a temporary name that is renamed into place only after
 it succeeds, so a cut build is never loaded.  Nothing is built at import:
 the first call of a kernel's wrapper builds it through :func:`load_library`.
@@ -19,7 +21,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "openmeasure_torch"
@@ -29,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "openmeasure_torc
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def sources() -> list:
@@ -54,12 +56,17 @@ def _nvcc() -> str:
         "kernels are built from source at first use and need it.")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:
@@ -68,14 +75,14 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def _compile(name: str, out: Path) -> None:
+def _compile(name: str, out: Path, defines: Tuple[str, ...]) -> None:
     """``nvcc`` on ``csrc/<name>.cu`` into ``out``, by way of a temporary
     name; the compiler output (the ``-Xptxas -v`` lines) is kept beside
     the library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -96,12 +103,14 @@ def load_all() -> list:
     return names
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load_library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``-D`` each of
+    ``defines`` (none for the kernel a user's path runs), built first if
+    needed."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, defines)
         if not path.exists():
-            _compile(name, path)
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+            _compile(name, path, defines)
+        lib = _loaded[name, defines] = ctypes.CDLL(str(path))
     return lib

@@ -54,8 +54,9 @@
 //     Warp 0, whose elements have the shortest sums, first takes the logs
 //     of the d_j in its lanes and sums them in order through shuffles.
 //
-// Where the time goes (profile_torch.py chol, which builds this file with
-// CHOL_STAMPS; on an NVIDIA H100 80GB HBM3 at 700 W): at (14, 41, 41) the
+// Where the time goes (profile_torch.py chol, from a build of this file
+// with CHOL_STAMPS, whose stamps add barriers; on an NVIDIA H100 80GB HBM3
+// at 700 W): at (14, 41, 41) the
 // Schur steps take about two thirds of the kernel's cycles, some 460
 // cycles a step -- the barrier, the shared-memory round trip of the
 // published column and the pivot's rsqrt, all on the chain -- and the
@@ -79,9 +80,13 @@
 
 #include <cstdint>
 
-// Phase stamps, compiled only with -DCHOL_STAMPS (profile_torch.py chol):
-// after a barrier, thread 0 of each block writes clock64() and the global
-// timer (ns) at the end of phase n into stamps[16 b + 2 n], [16 b + 2 n + 1].
+// Phase stamps, compiled only with -DCHOL_STAMPS (linalg/chol_cuda.py,
+// chol_phase_stamps; profile_torch.py chol): after a barrier, thread 0 of
+// each block writes clock64() and the global timer (ns) at the end of
+// phase n into stamps[16 b + 2 n], [16 b + 2 n + 1].  The six barriers are
+// the stamped build's own, and the one after the logdet keeps it from
+// overlapping the Gram: its phase times are those of a kernel with more
+// barriers than the one built without the define.
 #ifdef CHOL_STAMPS
 __device__ long long* g_chol_stamps;
 extern "C" int chol_set_stamps(long long* stamps) {

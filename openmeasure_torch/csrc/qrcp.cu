@@ -24,6 +24,8 @@
 //     col = s * A[:, j];  two Gram-Schmidt passes against Q[:, :i]
 //     q = col / sqrt(max(|col|^2, FLT_MIN));  Q[:, i] = q
 //     norms -= (q^T (s * A))^2;  norms[j] = -inf;  pivots[i] = j
+// k may exceed n: once every column is a pivot, all norms are -inf and each
+// later step picks column 0, the lowest index, as the plain sweep does.
 // The panel is never written, and no padded copy of it is made: the kernel
 // reads A through the strides it is given and masks the ragged edge.
 //
@@ -405,7 +407,7 @@ int qrcp_pivots_launch(const float* A, int r, int n, int64_t sr, int64_t sc,
                        const float* row_scale, int k, int grid, int cols_per_block,
                        int resident, int q_staged, int smem_bytes, int* pivots, float* norms,
                        float* part_v, int* part_i, float* Q, void* stream) {
-  if (k < 1 || k > kMaxK || k > n || grid < 1 || 
+  if (k < 1 || k > kMaxK || grid < 1 ||
       static_cast<int64_t>(grid) * cols_per_block < n ||
       static_cast<int64_t>(grid - 1) * cols_per_block >= n)
     return static_cast<int>(cudaErrorInvalidValue);

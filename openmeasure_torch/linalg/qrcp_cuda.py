@@ -143,10 +143,10 @@ def _check(A: torch.Tensor, k: int, row_scale) -> None:
     if not 1 <= r < 2 ** 31 or not 1 <= n < 2 ** 31:
         raise ValueError(f"qrcp_pivots_cuda supports 1 <= r, n < 2**31, "
                          f"got {(r, n)}")
-    if not 1 <= k <= min(K_MAX, n):
-        raise ValueError(f"qrcp_pivots_cuda supports 1 <= k <= min({K_MAX}, n)"
-                         f" (got k={k}, n={n}); use linalg.qrcp.qrcp_pivots "
-                         "for larger pivot counts.")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"qrcp_pivots_cuda supports 1 <= k <= {K_MAX} "
+                         f"(got k={k}); use linalg.qrcp.qrcp_pivots for "
+                         "larger pivot counts.")
     if not _strides_ok((r, n), A.stride()):
         raise ValueError(f"qrcp_pivots_cuda needs a non-overlapping (r, n) "
                          f"view, got strides {A.stride()} for shape {(r, n)}")
@@ -194,10 +194,12 @@ def qrcp_pivots_cuda(A: torch.Tensor, k: int,
     CUDA fp32 (r, n) panel, by the CUDA kernel.  Returns int32 (k,) on A's
     device; launches on the current stream and does not synchronize.
 
-    Raises on anything the kernel does not take (a CPU tensor, another
-    dtype, k outside [1, min(128, n)], overlapping strides) and when a
-    launch is refused.  ``qrcp_pivots_cuda.launches`` counts the calls
-    that launched the kernel (one launch each)."""
+    k may exceed n: the steps past n pick column 0, as the plain sweep
+    does.  Raises on anything the kernel does not take (a CPU tensor,
+    another dtype, k outside [1, 128], overlapping strides, a row scale
+    that is not (r,)) and when a launch is refused.
+    ``qrcp_pivots_cuda.launches`` counts the calls that launched the kernel
+    (one launch each)."""
     return _launch(A, k, row_scale)[0]
 
 
@@ -205,24 +207,20 @@ qrcp_pivots_cuda.launches = 0
 
 
 def _route(device_type: str, dtype: torch.dtype, k: int, shape: tuple,
-           strides: tuple, scale_shape: Optional[tuple] = None) -> str:
+           strides: tuple) -> str:
     """Where :func:`qrcp_pivots_auto` sends a panel: ``"kernel"``,
     ``"copy"`` (a contiguous copy, then the kernel) or ``"plain"`` (the
     plain sweep on the panel's device).
 
-    The kernel takes a CUDA fp32 (r, n) panel with 1 ≤ k ≤ min(128, n) and
-    an (r,) row scale; a view it cannot read through its strides (a zero
-    stride, overlapping rows or columns) is copied first.  Everything else
-    takes the plain sweep, as on the CPU, so the call returns on the card
-    wherever it returns on the CPU."""
-    if device_type != "cuda" or dtype != torch.float32 or len(shape) != 2:
+    As in the JAX package's gate, a CUDA fp32 panel with k ≤ 128 goes to
+    the kernel, which raises on what it does not take; an (r, n) view it
+    cannot read through its strides (a zero stride, overlapping rows or
+    columns) is copied first.  Everything else takes the plain sweep."""
+    if device_type != "cuda" or dtype != torch.float32 or k > K_MAX:
         return "plain"
-    r, n = shape
-    if not (1 <= r < 2 ** 31 and 1 <= n < 2 ** 31 and 1 <= k <= min(K_MAX, n)):
-        return "plain"
-    if scale_shape is not None and tuple(scale_shape) != (r,):
-        return "plain"
-    return "kernel" if _strides_ok(shape, strides) else "copy"
+    if len(shape) == 2 and not _strides_ok(shape, strides):
+        return "copy"
+    return "kernel"
 
 
 def qrcp_pivots_auto(A: torch.Tensor, k: int,
@@ -232,21 +230,20 @@ def qrcp_pivots_auto(A: torch.Tensor, k: int,
     ``jax.default_backend() == "tpu"``, here on the tensor's device; see
     :func:`_route`):
 
-    * a CUDA fp32 panel with 1 ≤ k ≤ min(128, n) goes to the CUDA kernel,
-      with ``row_scale`` applied in-kernel; a zero-stride or overlapping
-      view is copied to a contiguous panel first;
+    * a CUDA fp32 panel with k ≤ 128 goes to the CUDA kernel, with
+      ``row_scale`` applied in-kernel; a zero-stride or overlapping view is
+      copied to a contiguous panel first;
     * a CPU tensor takes the plain sweep :func:`qrcp_pivots`, with
       ``row_scale`` applied to a copy;
-    * a CUDA tensor that is not fp32, or asks for k > 128 or k > n, takes
-      the plain sweep on the card, as the JAX package sends such panels to
-      its jnp sweep.
+    * a CUDA tensor that is not fp32, or asks for k > 128, takes the plain
+      sweep on the card, as the JAX package sends such panels to its jnp
+      sweep.
 
     There is no fallback: a kernel that fails to build or launch raises.
     """
     if row_scale is not None:
         row_scale = torch.as_tensor(row_scale, dtype=A.dtype, device=A.device)
-    route = _route(A.device.type, A.dtype, k, tuple(A.shape), A.stride(),
-                   None if row_scale is None else tuple(row_scale.shape))
+    route = _route(A.device.type, A.dtype, k, tuple(A.shape), A.stride())
     if route == "copy":
         A = A.clone(memory_format=torch.contiguous_format)
     if route != "plain":

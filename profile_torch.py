@@ -17,7 +17,8 @@ trace) on random SPD (14, p, p) batches, p = 41 (the GP trainer's shape),
 17, 64 and 128, beside the wrapper's time per call with the host's part
 (CUDA events over 200 back-to-back calls), and the kernel's cycles by
 phase (prologue, Schur, substitution, logdet, Gram) from a build of
-``csrc/chol.cu`` with ``-DCHOL_STAMPS``.  ``spr`` and ``gp``: for the
+``csrc/chol.cu`` with ``-DCHOL_STAMPS``, whose six stamps each follow a
+block barrier the shipped kernel does not have.  ``spr`` and ``gp``: for the
 synthetic flame sets of ``chip_smoke.py`` — flagship (165,258 × 41, r = 14)
 and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
 
@@ -67,6 +68,7 @@ def main() -> int:
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
     from openmeasure_torch.pipelines import gpr_end_to_end, spr_end_to_end
     from openmeasure_torch.utils.metrics import nrmse
+    from openmeasure_torch.utils.timing import device_ms
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,35 +86,18 @@ def main() -> int:
         return 2
 
     if "qrcp" in sections:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         from openmeasure_torch.linalg import qrcp_cuda
 
-        def kernel_ms(fn, reps=5):
-            """Mean device time of the qrcp kernel over reps calls of fn,
-            from the profiler's trace (the host's time per call does not
-            enter)."""
-            fn()
-            sync()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                sync()
-            us = [e.time_range.end - e.time_range.start
-                  for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and "qrcp_kernel" in e.name]
-            return sum(us) / len(us) / 1e3 if us else float("nan")
-
-        print("QRCP kernel (csrc/qrcp.cu): device ms per call against k, "
-              "r = 14, row-scaled B.T panels (the main path's layout)",
-              flush=True)
+        print("QRCP kernel (csrc/qrcp.cu): device ms per call against k "
+              "(median of 5 calls in the trace), r = 14, row-scaled B.T "
+              "panels (the main path's layout)", flush=True)
         g = torch.Generator(device=dev).manual_seed(0)
         s = torch.logspace(0, 4, R, device=dev)
         for n in (4224, 165258, 1723599):
             A = torch.randn(n, R, generator=g, device=dev).T
             plan = qrcp_cuda.device_plan(R, n, R, dev)
-            ts = {k: kernel_ms(lambda k=k: qrcp_cuda.qrcp_pivots_cuda(
-                A, k, row_scale=s)) for k in (1, 2, 7, 14)}
+            ts = {k: device_ms(lambda k=k: qrcp_cuda.qrcp_pivots_cuda(
+                A, k, row_scale=s), "qrcp_kernel", 5)[0] for k in (1, 2, 7, 14)}
             step = (ts[14] - ts[1]) / 13
             print(f"  (14, {n}): grid {plan.grid}, "
                   f"{plan.cols_per_block} columns a block, resident "
@@ -125,14 +110,15 @@ def main() -> int:
             del A
 
     if "chol" in sections:
-        import statistics
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         from openmeasure_torch.linalg import chol_cuda
 
         print("chol kernel (csrc/chol.cu): device ms per launch, median of "
               "200 launches in the trace; wrapper ms per call with the "
-              "host's part", flush=True)
+              "host's part; cycles by phase from the -DCHOL_STAMPS build "
+              "(chol_cuda.chol_phase_stamps: a stamp after a barrier at the "
+              "end of each phase, six barriers more than the shipped kernel, "
+              "median over the blocks of one launch after 20)", flush=True)
+        phases = ("prologue", "Schur", "substitution", "logdet", "Gram")
         for p in (41, 17, 64, 128):
             rng = np.random.default_rng(p)
             Q = rng.standard_normal((R, p, p))
@@ -140,15 +126,7 @@ def main() -> int:
                                 + 0.5 * np.eye(p), dtype=torch.float32,
                                 device=dev)
             call = lambda: chol_cuda.chol_inv_logdet_cuda(K)  # noqa: E731
-            call()
-            sync()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(200):
-                    call()
-                sync()
-            us = [e.time_range.end - e.time_range.start
-                  for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and "chol_inv_logdet" in e.name]
+            dev_ms, seen = device_ms(call, "chol_inv_logdet", 200)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -156,51 +134,16 @@ def main() -> int:
                 call()
             b.record()
             sync()
-            dev_ms = statistics.median(us) / 1e3 if us else float("nan")
             print(f"  ({R}, {p}, {p}): device {dev_ms:.5f} ms per launch "
-                  f"(median of {len(us)}; min {min(us, default=0) / 1e3:.5f},"
-                  f" max {max(us, default=0) / 1e3:.5f}), wrapper "
+                  f"(median of {seen}), wrapper "
                   f"{a.elapsed_time(b) / 200:.5f} ms per call", flush=True)
-
-        # where a launch's time goes: csrc/chol.cu built again with
-        # -DCHOL_STAMPS, which stamps clock64() and the global timer after a
-        # barrier at the end of each phase (the stamps' barriers add a little)
-        import ctypes
-        from openmeasure_torch import _build
-        so = _build.BUILD_DIR / "libchol-stamps.so"
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DCHOL_STAMPS",
-                        "-o", str(so), str(_build.CSRC / "chol.cu")],
-                       check=True, capture_output=True)
-        lib = ctypes.CDLL(str(so))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.chol_inv_logdet_launch.argtypes = [vp, i32, i32, vp, vp, vp]
-        lib.chol_set_stamps.argtypes = [vp]
-        phases = ("prologue", "Schur", "substitution", "logdet", "Gram")
-        print("chol kernel phases (clock64 stamps of a -DCHOL_STAMPS build, "
-              "median over the blocks of one launch after 20):", flush=True)
-        for p in (41, 17, 64, 128):
-            rng = np.random.default_rng(p)
-            Q = rng.standard_normal((R, p, p))
-            K = torch.as_tensor(np.einsum("bij,bkj->bik", Q, Q) / p
-                                + 0.5 * np.eye(p), dtype=torch.float32,
-                                device=dev)
-            kinv, ld = torch.empty_like(K), torch.empty(R, device=dev)
-            stamps = torch.zeros(R * 16, dtype=torch.int64, device=dev)
-            if lib.chol_set_stamps(stamps.data_ptr()) != 0:
-                raise RuntimeError("chol_set_stamps failed")
-            stream = torch.cuda.current_stream().cuda_stream
             for _ in range(20):
-                if lib.chol_inv_logdet_launch(K.data_ptr(), R, p,
-                                              kinv.data_ptr(), ld.data_ptr(),
-                                              stream) != 0:
-                    raise RuntimeError("stamped chol launch failed")
-            sync()
-            st = stamps.view(R, 8, 2)[:, :6].cpu().numpy()
+                st = chol_cuda.chol_phase_stamps(K)[2]
+            st = st.cpu().numpy()
             cyc = np.median(np.diff(st[:, :, 0], axis=1), axis=0)
             total = float(np.median(st[:, 5, 0] - st[:, 0, 0]))
             ns = float(np.median(st[:, 5, 1] - st[:, 0, 1]))
-            print(f"  ({R}, {p}, {p}): {total:.0f} cycles a block, "
+            print(f"    stamped: {total:.0f} cycles a block, "
                   f"{ns / 1e3:.3f} us ({total / ns:.3f} GHz); "
                   + ", ".join(f"{name} {c:.0f} ({100 * c / total:.1f} %)"
                               for name, c in zip(phases, cyc))

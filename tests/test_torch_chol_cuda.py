@@ -11,7 +11,9 @@ K⁻¹ within 5e-6 of max|K⁻¹| and logdet within 5e-3 absolute — the TPU
 kernel's bars (``tests/test_tpu_kernels.py``); against
 ``chol_inv_logdet_plain`` EQUAL, bit for bit: the plain version runs the
 kernel's fp32 operations in the kernel's order, its Gram included (a
-fixed-order sequential sum), each separately rounded.
+fixed-order sequential sum), each separately rounded.  On matrices built
+like the GP trainer's, too ill-conditioned for the fixed bars, the kernel
+is held against a float64 Cholesky within p · cond₂(K) · u.
 """
 
 import numpy as np
@@ -74,7 +76,12 @@ def test_kernel_matches_both_plain_versions(card, B, p):
 def test_kernel_on_gp_trainer_matrices(card):
     """A (14, 41, 41) batch built as the GP trainer builds it: a scaled
     Matérn-2.5 kernel of 41 three-parameter points, one lengthscale and
-    outputscale per mode, plus the likelihood's noise and the fp32 jitter."""
+    outputscale per mode, plus the likelihood's noise in the range training
+    reaches (its floor 1e-4 up to 1e-2) and the fp32 jitter.  Such matrices
+    are too ill-conditioned for the fixed fp32 bars, so the kernel is held
+    EQUAL to its plain version and, per matrix, within p · cond₂(K) · u of
+    a float64 Cholesky of the same fp32 matrix (K⁻¹ relative to max|K⁻¹|,
+    logdet absolute; u the fp32 unit round-off)."""
     from openmeasure_torch.gp import exact_gp
     from openmeasure_torch.gp.kernels import MaternKernel, ScaleKernel
     rng = np.random.default_rng(16)
@@ -85,16 +92,24 @@ def test_kernel_on_gp_trainer_matrices(card):
            "base": {"raw_lengthscale": torch.as_tensor(
                rng.uniform(-2.0, 0.0, (14, 1)), dtype=torch.float32,
                device=card)}}
-    # noise that keeps cond(K) ≲ 1.2e2, where the fp32 Cholesky
-    # formulation's bars hold with room (on the CPU both fp32 versions are
-    # within 1.1e-6 of max of the float64 inverse); at noise 1e-2–1e-1,
-    # cond ≈ 1e3, cuSOLVER's fp32 Cholesky alone is 8e-6 of max away
-    noise = torch.as_tensor(rng.uniform(1e-1, 5e-1, 14), dtype=torch.float32,
-                            device=card)
+    noise = torch.as_tensor(10.0 ** rng.uniform(-4.0, -2.0, 14),
+                            dtype=torch.float32, device=card)
     Kn = exact_gp._add_noise(ScaleKernel(MaternKernel(2.5))(par, P, P), noise)
-    K = Kn + exact_gp._jitter(Kn.dtype) * torch.eye(41, device=card)
+    K = (Kn + exact_gp._jitter(Kn.dtype) * torch.eye(41, device=card)
+         ).contiguous()
     assert K.shape == (14, 41, 41)
-    _kernel_vs_plain_versions(K.contiguous())
+    got = TCC.chol_inv_logdet_cuda(K)
+    _equal(got, TC.chol_inv_logdet_plain(K))
+    K64 = K.double()
+    L64 = torch.linalg.cholesky(K64)
+    kinv64 = torch.cholesky_inverse(L64)
+    ld64 = 2.0 * torch.log(torch.diagonal(L64, dim1=-2, dim2=-1)).sum(-1)
+    bar = 41 * torch.linalg.cond(K64) * 2.0 ** -24
+    assert float(bar.max()) > 5e-6     # beyond the fixed bars' reach
+    rel = ((got[0].double() - kinv64).abs().amax((-2, -1))
+           / kinv64.abs().amax((-2, -1)))
+    assert bool((rel <= bar).all()), (rel / bar).max()
+    assert bool(((got[1].double() - ld64).abs() <= bar).all())
 
 
 @pytest.mark.cuda
@@ -123,6 +138,24 @@ def test_one_call_is_one_kernel(card):
                and "memset" not in e.name.lower()
                and "Fill" not in e.name]
     assert len(kernels) == 1 and "chol" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_phase_stamps_build(card):
+    """The -DCHOL_STAMPS build (``profile_torch.py chol`` splits a launch's
+    cycles by phase with it) builds and launches; its outputs equal the
+    shipped kernel's bit for bit, each block's six stamps never decrease,
+    and the launch is not counted."""
+    K = _spd(3, 41, seed=19, device=card)
+    before = TCC.chol_inv_logdet_cuda.launches
+    kinv, ld, st = TCC.chol_phase_stamps(K)
+    torch.cuda.synchronize()
+    assert TCC.chol_inv_logdet_cuda.launches == before
+    _equal((kinv, ld), TCC.chol_inv_logdet_cuda(K))
+    st = st.cpu()
+    assert st.shape == (3, 6, 2)
+    assert bool((st[:, 1:] >= st[:, :-1]).all())
+    assert bool((st[:, -1] > st[:, 0]).all())
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ def test_import_without_jax_in_a_fresh_process():
         "sys.modules['jax'] = None\n"          # any `import jax` now fails
         "import openmeasure_torch, openmeasure_torch.pipelines\n"
         "import openmeasure_torch.utils.convert, openmeasure_torch.utils.metrics\n"
+        "import openmeasure_torch.utils.timing\n"
         "import openmeasure_torch.linalg.qrcp_cuda, openmeasure_torch._build\n"
         "import openmeasure_torch.linalg.chol, openmeasure_torch.linalg.chol_cuda\n"
         "import openmeasure_torch.gp.kernels, openmeasure_torch.gp.exact_gp\n"

@@ -131,6 +131,27 @@ def test_kernel_takes_every_column(card, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("shape,k", [((14, 10), 12), ((3, 1), 4),
+                                     ((8, 5), 7), ((200, 30), 40)])
+def test_kernel_takes_more_pivots_than_columns(card, shape, k, scaled):
+    """k > n (and k > r): once every column is a pivot all norms are −inf,
+    and each later step picks column 0, as the plain sweep's argmax does;
+    (200, 30) with k = 40 keeps Q in global memory (k r > 4096)."""
+    rng = np.random.default_rng(18)
+    A = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=card)
+    r, n = shape
+    s = (torch.as_tensor(np.geomspace(1.0, 1e4, r), dtype=torch.float32,
+                         device=card) if scaled else None)
+    assert (TQC.device_plan(r, n, k, card).q_floats == 0) == (k * r > 4096)
+    _kernel_vs_plain(A, k, s)
+    pk = TQC.qrcp_pivots_cuda(A, k, row_scale=s).cpu()
+    assert sorted(pk[:n].tolist()) == list(range(n))
+    assert pk[n:].tolist() == [0] * (k - n)
+
+
+@pytest.mark.cuda
 def test_one_call_is_one_kernel(card):
     """One qrcp_pivots_cuda call runs exactly one kernel on the card."""
     from torch.autograd import DeviceType
@@ -161,9 +182,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="k <="):
         TQC.qrcp_pivots_cuda(A, 129)
     with pytest.raises(ValueError, match="k <="):
-        TQC.qrcp_pivots_cuda(A[:, :3], 4)
+        TQC.qrcp_pivots_cuda(A, 0)
     with pytest.raises(ValueError, match="non-overlapping"):
         TQC.qrcp_pivots_cuda(A[:, :1].expand(4, 100), 4)
+    for s in (torch.ones(3, device=card), torch.ones((4, 1), device=card)):
+        with pytest.raises(ValueError, match="row_scale"):
+            TQC.qrcp_pivots_cuda(A, 4, row_scale=s)
+        with pytest.raises(ValueError, match="row_scale"):
+            TQC.qrcp_pivots_auto(A, 4, row_scale=s)
 
 
 @pytest.mark.cuda
@@ -209,15 +235,15 @@ def test_nan_column_matches_plain(card, shape, regime, scaled):
 
 @pytest.mark.cuda
 def test_auto_returns_where_the_cpu_path_returns(card):
-    """k > n takes the plain sweep on the card; an expanded or overlapping
-    view is copied and launches the kernel; both return the plain sweep's
-    pivots, while qrcp_pivots_cuda itself keeps refusing them."""
+    """k > n launches the kernel; an expanded or overlapping view is
+    copied and launches the kernel, while qrcp_pivots_cuda itself refuses
+    the view; both return the plain sweep's pivots."""
     rng = np.random.default_rng(15)
     A = torch.as_tensor(rng.standard_normal((14, 10)), dtype=torch.float32,
                         device=card)
     before = TQC.qrcp_pivots_cuda.launches
     got = TQC.qrcp_pivots_auto(A, 12)
-    assert TQC.qrcp_pivots_cuda.launches == before
+    assert TQC.qrcp_pivots_cuda.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   TQ.qrcp_pivots(A, 12).cpu().numpy())
     base = torch.as_tensor(rng.standard_normal(3000), dtype=torch.float32,

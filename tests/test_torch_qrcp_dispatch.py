@@ -1,13 +1,14 @@
 """The QRCP dispatch of ``openmeasure_torch.linalg.qrcp_cuda`` (CPU).
 
-``qrcp_pivots_auto`` must return on the card wherever the same call returns
-on the CPU: its routing (:func:`qrcp_cuda._route`, a pure function of the
-device type, dtype, k, shape and strides) is tested here without a card,
-and the panels it sends to the plain sweep are checked against the JAX
-package's sweep — pivots EQUAL, in float64, for k > n and for a panel with
-a NaN column (a NaN norm ranks above every number, the lowest index first,
-in ``torch.argmax`` and ``jnp.argmax`` alike).  The same calls on the card
-are in ``test_torch_qrcp_cuda.py``.
+``qrcp_pivots_auto`` sends a CUDA fp32 panel with k ≤ 128 to the kernel,
+copying a view the kernel cannot read through its strides: its routing
+(:func:`qrcp_cuda._route`, a pure function of the device type, dtype, k,
+shape and strides) is tested here without a card.  The port's plain sweep,
+which the CPU takes and to which the card holds the kernel, is checked
+against the JAX package's sweep — pivots EQUAL, in float64, for k > n and
+for a panel with a NaN column (a NaN norm ranks above every number, the
+lowest index first, in ``torch.argmax`` and ``jnp.argmax`` alike).  The
+same calls on the card are in ``test_torch_qrcp_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -23,27 +24,30 @@ from openmeasure_torch.linalg import qrcp_cuda as TQC
 F32, F64 = torch.float32, torch.float64
 
 
-@pytest.mark.parametrize("device,dtype,k,shape,strides,scale,want", [
-    ("cuda", F32, 14, (14, 5000), (5000, 1), None, "kernel"),
-    ("cuda", F32, 14, (14, 5000), (1, 14), (14,), "kernel"),     # B.T
-    ("cuda", F32, 9, (9, 5000), (1, 14), None, "kernel"),        # Ur.T slice
-    ("cuda", F32, 10, (14, 10), (10, 1), None, "kernel"),        # k == n
-    ("cuda", F32, 12, (14, 10), (10, 1), None, "plain"),         # k > n
-    ("cuda", F32, 12, (14, 10), (1, 14), (14,), "plain"),        # k > n
-    ("cuda", F32, 129, (200, 5000), (5000, 1), None, "plain"),   # k > 128
-    ("cuda", F32, 0, (14, 5000), (5000, 1), None, "plain"),      # k < 1
-    ("cuda", F64, 14, (14, 5000), (5000, 1), None, "plain"),
-    ("cpu", F32, 14, (14, 5000), (5000, 1), None, "plain"),
-    ("cuda", F32, 4, (4, 100), (0, 1), None, "copy"),            # expand
-    ("cuda", F32, 4, (4, 100), (1, 0), None, "copy"),            # expand
-    ("cuda", F32, 4, (4, 100), (7, 1), (4,), "copy"),            # overlap
-    ("cuda", F32, 4, (4, 100), (1, 3), None, "copy"),            # overlap
-    ("cuda", F32, 20, (4, 100), (0, 1), None, "copy"),           # k > r
-    ("cuda", F32, 4, (4, 100), (100, 1), (1,), "plain"),         # broadcast
-    ("cuda", F32, 4, (4, 100, 2), (200, 2, 1), None, "plain"),   # not 2-D
+@pytest.mark.parametrize("device,dtype,k,shape,strides,want", [
+    ("cuda", F32, 14, (14, 5000), (5000, 1), "kernel"),
+    ("cuda", F32, 14, (14, 5000), (1, 14), "kernel"),         # B.T
+    ("cuda", F32, 9, (9, 5000), (1, 14), "kernel"),           # Ur.T slice
+    ("cuda", F32, 10, (14, 10), (10, 1), "kernel"),           # k == n
+    ("cuda", F32, 12, (14, 10), (10, 1), "kernel"),           # k > n
+    ("cuda", F32, 12, (14, 10), (1, 14), "kernel"),           # k > n, B.T
+    ("cuda", F32, 129, (200, 5000), (5000, 1), "plain"),      # k > 128
+    ("cuda", F32, 0, (14, 5000), (5000, 1), "kernel"),        # k < 1: raises
+    ("cuda", F64, 14, (14, 5000), (5000, 1), "plain"),
+    ("cpu", F32, 14, (14, 5000), (5000, 1), "plain"),
+    ("cuda", F32, 4, (4, 100), (0, 1), "copy"),               # expand
+    ("cuda", F32, 4, (4, 100), (1, 0), "copy"),               # expand
+    ("cuda", F32, 4, (4, 100), (7, 1), "copy"),               # overlap
+    ("cuda", F32, 4, (4, 100), (1, 3), "copy"),               # overlap
+    ("cuda", F32, 20, (4, 100), (0, 1), "copy"),              # k > r
+    ("cuda", F32, 4, (2 ** 31, 4), (4, 1), "kernel"),         # r: raises
+    ("cuda", F32, 4, (4, 100, 2), (200, 2, 1), "kernel"),     # 3-D: raises
 ])
-def test_route(device, dtype, k, shape, strides, scale, want):
-    assert TQC._route(device, dtype, k, shape, strides, scale) == want
+def test_route(device, dtype, k, shape, strides, want):
+    """A CUDA fp32 panel with k ≤ 128 never takes the plain sweep, as in
+    the JAX package's gate: the kernel takes it, or a contiguous copy of a
+    view it cannot read, or raises on what it does not take."""
+    assert TQC._route(device, dtype, k, shape, strides) == want
 
 
 def test_route_of_real_views_and_their_copies():
