@@ -17,7 +17,15 @@ paths through their user entry points:
   test snapshots with 3 parameters each, r = 14, Matérn-2.5, up to 1000
   Adam iterations), the class API ``GPR.fit → train → predict →
   reconstruct`` for SingleTask and MultiTask, and one ``engine='host'``
-  run held against the port's float64 CPU result.
+  run held against the port's float64 CPU result;
+* serving — the flagship SPR trained with ``method='COLS'`` under
+  per-feature limits and packaged by ``SoftSensor.from_spr`` (300 ADMM
+  iterations, adaptive and fixed ρ, batches of 50 frames), held against a
+  float64 sensor of the same model on the card, once with limits padded
+  outward (the timed configuration) and once padded inward so that they
+  bind, and an OLS sensor against ``SPR.predict``; ``GPRSensor.from_gpr`` on the MultiTask model, without
+  and with limits, against the eager ``GPR.predict``; ``ROM.CPOD`` on the
+  41 flagship snapshots.
 
 The QRCP kernel is held bit-equal to the plain sweep (a panel with a NaN
 entry, and k > n, included), and ``qrcp_pivots_auto`` must launch it and
@@ -26,9 +34,11 @@ read through their strides; the chol kernel is held bit-equal to
 ``chol_inv_logdet_plain``, and on the main path's matrices against a
 float64 Cholesky within a bar scaled by their condition number.
 It checks each reconstruction's NRMSE, shows by the launch counters that
-each entry point ran through its kernel, and times the pipelines and the
-QRCP kernel with CUDA events and the chol kernel by its device time in
-``torch.profiler``'s trace.
+each entry point ran through its kernel, and times the pipelines, the
+serving batches and the QRCP kernel with CUDA events and the chol kernel
+by its device time in ``torch.profiler``'s trace.  A fixed-budget serving
+batch must make no read back to the host (``torch.cuda``'s sync debug
+mode set to raise, and no device-to-host copy in the trace).
 
 Every failed check raises, and the script exits non-zero without its final
 line.  The last three lines are the card's name and power limit (as
@@ -89,6 +99,30 @@ GPR_F64_NRMSE = {"gpr_end_to_end": 0.014428297574591142,
 GPR_NRMSE_SLACK = 1.10
 # engine='host' against the port's float64 CPU run of the same inputs
 HOST_ENGINE_TOL = 1e-10
+# serving (bench.py's serving configuration): batches of 50 frames, the
+# fixed ADMM budget, limits padded by 5 % of each feature's span
+SERVE_BATCH, SERVE_ITERS, SERVE_PAD = 50, 300, 0.05
+# fp32 COLS coefficients against a float64 sensor of the same model at the
+# same budget, relative to max|a|: each of the 300 iterations adds ~u of
+# fp32 round-off, which the non-expansive iteration carries forward, and
+# the (r, r) solves scale it by their conditioning (tens): 300 · u · 50 ≈
+# 9e-4, so 2e-3 (an H100 measured 1.8e-4 adaptive, 4.2e-5 fixed)
+SERVE_COEF_REL = 2e-3
+# the served fields' largest excursion past a limit, relative to the
+# feature's span: the fields are Ur g, not the clipped split variable z,
+# so they may stray by the primal residual left after the budget.  With
+# the limits padded INWARD by SERVE_PAD, so that field entries reach them,
+# the budget leaves a primal residual in float64 too: there the fp32
+# fields may stray by the float64 sensor's excursion plus this
+SERVE_VIOL_REL = 1e-3
+# GPRSensor (unconstrained) against GPR.predict + reconstruct: the same
+# fp32 operations, the GEMMs of other shapes
+GP_SERVE_REL = 1e-5
+# constrained GPRSensor against the eager constrained predict at the same
+# budget: their covariances differ by one fp32 rounding (diag(var) against
+# diag(sqrt(var)²)), which 300 non-expansive iterations carry at most
+# ~300 · u ≈ 2e-5
+GP_SERVE_MAP_REL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -112,7 +146,7 @@ def main() -> int:
 
     import numpy as np
     import openmeasure_torch  # noqa: F401  (pins full-fp32 matmuls)
-    from openmeasure_torch import GPR, SPR, _build
+    from openmeasure_torch import GPR, ROM, SPR, GPRSensor, SoftSensor, _build
     from openmeasure_torch.core import scaling
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
     from openmeasure_torch.gp import exact_gp
@@ -449,20 +483,23 @@ def main() -> int:
         log(f"  {tag} max_memory_allocated of one call at the default "
             f"refine: {peak:.1f} MiB")
 
-    def kernels_per_call(fn):
-        """Device kernels one call of ``fn`` runs (torch.profiler), or None
-        when the profiler records no device activity."""
+    def trace_counts(fn):
+        """(device kernels, device-to-host copies) in torch.profiler's
+        trace of one call of ``fn``; kernels None when the trace holds no
+        device activity."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+        sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             sync()
         names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and "memcpy" not in e.name.lower()
-                 and "memset" not in e.name.lower()]
-        return len(names) if names else None
+                 if e.device_type == DeviceType.CUDA]
+        kernels = [n for n in names if "memcpy" not in n.lower()
+                   and "memset" not in n.lower()]
+        return (len(kernels) if kernels else None,
+                sum(1 for n in names if "DtoH" in n))
 
     records = []
     for tag, replaces, launches in (
@@ -477,7 +514,7 @@ def main() -> int:
                      n=50 if tag == "flagship" else 10)
         plain_ms = loop_ms(lambda: plain.qrcp_pivots(A * dinv[:, None], k),
                            n=5, warmup=1)
-        per_call = kernels_per_call(
+        per_call, _ = trace_counts(
             lambda: kern.qrcp_pivots_cuda(A, k, row_scale=dinv))
         bytes_ms = (r * n * 4 + r * 4 + k * 4) / HBM_BYTES_PER_S * 1e3
         ops_ms = (2.0 * r * n * (k + 1) + 2.0 * n * k) / FP32_FLOPS * 1e3
@@ -565,12 +602,13 @@ def main() -> int:
         flag["X_train"], Pf, Ptf, flag["X_test"], **FLAGSHIP))
     gp_runs["gpr_end_to_end"] = (res_g.X_rec, float(res_g.nrmse), n_g,
                                  res_g.iterations.tolist())
+    gp_models = {}
     for gpr_type in ("SingleTask", "MultiTask"):
         (g, _, xr), n = chol_counted(lambda: gp_class_flow(gpr_type))
         gp_runs[gpr_type] = (xr, float(nrmse(xr, Tf)), n,
                              g._iterations.tolist())
-        if gpr_type == "SingleTask":
-            gp_single = g
+        gp_models[gpr_type] = g
+    gp_single = gp_models["SingleTask"]
     for what, (xr, nr, n, its) in gp_runs.items():
         bar = GPR_NRMSE_SLACK * GPR_F64_NRMSE[what]
         log(f"  {what}: NRMSE {nr:.6e} (≤ {bar:.6e}; float64 JAX on the CPU "
@@ -732,6 +770,250 @@ def main() -> int:
         "bound_ms": chol_bound_ms,
         "bound_by": "bytes" if chol_bytes_ms >= chol_ops_ms else "operations",
         "library_ms": None})
+
+    # ---- serving, SPR family -------------------------------------------
+    log(f"phase 9: serving, SPR family — the flagship trained with "
+        f"method='COLS' under per-feature limits (min/max of the training "
+        f"snapshots ± {SERVE_PAD:.0%} of the span), SoftSensor.from_spr, "
+        f"batches of {SERVE_BATCH} frames, {SERVE_ITERS} ADMM iterations")
+    npts = flag["xyz"].shape[0]
+    Xb = flag["X_train"].astype(np.float64).reshape(9, npts, -1)
+    f_lo, f_hi = Xb.min(axis=(1, 2)), Xb.max(axis=(1, 2))
+    span = f_hi - f_lo
+    limits = [f_lo - SERVE_PAD * span, f_hi + SERVE_PAD * span]
+
+    def serving_model():
+        spr = SPR(flag["X_train"], 9, flag["xyz"])
+        spr.fit(select_modes="number", n_modes=14)
+        C = spr.optimal_placement()
+        spr.train(C, method="COLS", limits=limits)
+        return spr, C
+
+    (spr_s, C_s), launches_s = counted(serving_model)
+    log(f"  fit → optimal_placement → train(COLS): qrcp launches "
+        f"{launches_s}")
+    if launches_s < 1:
+        fail("the serving placement never launched csrc/qrcp.cu")
+    rows_s = C_s.argmax(dim=1).cpu().numpy()
+    frames = flag["X_test"][rows_s]                           # (14, 4)
+    Y = torch.as_tensor(np.tile(frames.T, (13, 1))[:SERVE_BATCH], device=dev)
+    span_rows = torch.as_tensor(np.repeat(span, npts), device=dev)
+
+    def violation(x, lims):
+        """The fields' largest excursion past ``lims`` relative to the
+        feature's span, and the count of entries within 1e-6 of the span of
+        a limit or past it."""
+        lo_r, hi_r = (torch.as_tensor(np.repeat(v, npts), device=dev)
+                      for v in lims)
+        v = torch.maximum(lo_r - x.double(), x.double() - hi_r)
+        return (float((torch.clamp(v, min=0.0) / span_rows).max()),
+                int((v >= -1e-6 * span_rows).sum()))
+
+    def host_syncs(fn):
+        """How many synchronizing CUDA calls one call of ``fn`` makes, by
+        torch.cuda's sync debug mode set to warn."""
+        import warnings
+        sync()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sync()
+        return sum(1 for w in caught
+                   if "synchronizing CUDA operation" in str(w.message))
+
+    t_phase = time.perf_counter()
+    for mode in ("adaptive", "fixed"):
+        s32 = SoftSensor.from_spr(spr_s, admm_iters=SERVE_ITERS,
+                                  admm_rho=mode).warmup()
+        s64 = SoftSensor.from_spr(spr_s, dtype=torch.float64,
+                                  admm_iters=SERVE_ITERS, admm_rho=mode)
+        x32, a32, _ = s32.predict_batch(Y)
+        _, a64, _ = s64.predict_batch(Y)
+        sync()
+        err = float((a32.double() - a64).abs().max() / a64.abs().max())
+        viol_rel, at_limit = violation(x32, limits)
+        finite = bool(torch.isfinite(x32).all())
+        med, lo_t, hi_t = per_call_ms(
+            {0: lambda: s32.predict_batch(Y)}, reps=10, warmup=2)[0]
+        per_batch, dtoh = trace_counts(lambda: s32.predict_batch(Y))
+        n_sync = host_syncs(lambda: s32.predict_batch(Y))
+        log(f"  admm_rho={mode!r}: fp32 coefficients vs the float64 sensor "
+            f"on the card max|Δa|/max|a| {err:.4e} (≤ {SERVE_COEF_REL}); "
+            f"largest limit violation of the fields {viol_rel:.4e} of the "
+            f"feature's span (≤ {SERVE_VIOL_REL}), {at_limit} field "
+            f"entries within 1e-6 of the span of a limit; per frame at batch "
+            f"{SERVE_BATCH} {med / SERVE_BATCH:.5f} ms (batch median "
+            f"{med:.4f} ms, min {lo_t:.4f}, max {hi_t:.4f}; 10 batches, CUDA "
+            f"events, inputs on the card); "
+            f"{'not measured' if per_batch is None else per_batch} device "
+            f"kernels per batch ({'-' if per_batch is None else f'{per_batch / SERVE_ITERS:.1f}'}"
+            f" per iteration); device-to-host copies in predict_batch {dtoh}, "
+            f"synchronizing calls {n_sync}")
+        if not finite or tuple(x32.shape) != (SERVE_BATCH, flag["X_train"].shape[0]):
+            fail(f"COLS serving fields ({mode}) are not finite of shape "
+                 f"({SERVE_BATCH}, n)")
+        if not err <= SERVE_COEF_REL:
+            fail(f"fp32 COLS coefficients ({mode}) {err:.3e} from float64")
+        if not viol_rel <= SERVE_VIOL_REL:
+            fail(f"COLS fields ({mode}) violate the limits by {viol_rel:.3e}")
+        if dtoh != 0 or n_sync != 0:
+            fail(f"a tol = 0 predict_batch ({mode}) read back to the host")
+
+    # the padded limits are out of the fields' reach: the same model with
+    # the limits padded inward, where the clip and the projection do work
+    bind_limits = [f_lo + SERVE_PAD * span, f_hi - SERVE_PAD * span]
+    spr_s.train(C_s, method="COLS", limits=bind_limits)
+    for mode in ("adaptive", "fixed"):
+        s32 = SoftSensor.from_spr(spr_s, admm_iters=SERVE_ITERS,
+                                  admm_rho=mode)
+        s64 = SoftSensor.from_spr(spr_s, dtype=torch.float64,
+                                  admm_iters=SERVE_ITERS, admm_rho=mode)
+        x32, a32, _ = s32.predict_batch(Y)
+        x64, a64, _ = s64.predict_batch(Y)
+        sync()
+        err = float((a32.double() - a64).abs().max() / a64.abs().max())
+        v32, at32 = violation(x32, bind_limits)
+        v64, at64 = violation(x64, bind_limits)
+        log(f"  limits padded inward, admm_rho={mode!r}: fp32 coefficients "
+            f"vs the float64 sensor max|Δa|/max|a| {err:.4e} (≤ "
+            f"{SERVE_COEF_REL}); {at32} fp32 and {at64} float64 field "
+            f"entries at or past a limit (within 1e-6 of the span); largest "
+            f"excursion past a limit {v32:.4e} of the span in fp32, "
+            f"{v64:.4e} in float64 (fp32 ≤ float64 + {SERVE_VIOL_REL})")
+        if not bool(torch.isfinite(x32).all()):
+            fail(f"binding COLS serving fields ({mode}) are not finite")
+        if at32 == 0:
+            fail(f"the inward limits bind no field entry ({mode})")
+        if not err <= SERVE_COEF_REL:
+            fail(f"fp32 COLS coefficients under binding limits ({mode}) "
+                 f"{err:.3e} from float64")
+        if not v32 <= v64 + SERVE_VIOL_REL:
+            fail(f"binding COLS fields ({mode}) stray {v32:.3e} past the "
+                 f"limits, float64 {v64:.3e}")
+    log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+    # OLS serving against the eager SPR.predict (host float64 pinv)
+    spr_s.train(C_s, cond=True)
+    s_ols = SoftSensor.from_spr(spr_s).warmup()
+    x_ols, a_ols, _ = s_ols.predict_batch(frames.T)
+    ys = []
+    for j in range(frames.shape[1]):
+        y = np.zeros((14, 3))
+        y[:, 0] = frames[:, j]
+        y[:, 2] = rows_s // npts
+        ys.append(y)
+    a_spr, _ = spr_s.predict(ys)
+    ols_bar = 14 * spr_s.k * FP32_UNIT_ROUNDOFF
+    ols_err = float((a_ols.double() - a_spr.double()).abs().max()
+                    / a_spr.double().abs().max())
+    nr_ols = float(nrmse(x_ols.T, Tf))
+    log(f"  OLS SoftSensor vs SPR.predict (host float64): max|Δa|/max|a| "
+        f"{ols_err:.4e} (≤ s · cond₂(Θ) · u = 14 · {spr_s.k:.4e} · 2⁻²⁴ = "
+        f"{ols_bar:.4e}); 4-frame NRMSE {nr_ols:.4e} (≤ "
+        f"{NRMSE_FLAGSHIP_MAX})")
+    if not ols_err <= ols_bar:
+        fail(f"OLS sensor coefficients {ols_err:.3e} from SPR.predict's")
+    if not nr_ols <= NRMSE_FLAGSHIP_MAX:
+        fail(f"OLS serving NRMSE {nr_ols:.3e} > {NRMSE_FLAGSHIP_MAX}")
+    for r_ in records:
+        if r_["name"] == "qrcp_pivots_cuda[flagship]":
+            r_["launches"] += launches_s
+
+    # ---- serving, GP family ---------------------------------------------
+    log("phase 10: serving, GP family — GPRSensor.from_gpr on phase 6's "
+        "MultiTask model, without and with limits")
+    t_phase = time.perf_counter()
+    gm = gp_models["MultiTask"]
+    gp_limits = bind_limits
+    g_free = GPRSensor.from_gpr(gm).warmup(batch=Ptft.shape[0])
+    g_box = GPRSensor.from_gpr(gm, limits=gp_limits,
+                               admm_iters=SERVE_ITERS).warmup(
+                                   batch=Ptft.shape[0])
+    chol_kern.chol_inv_logdet_cuda.launches = 0
+    n_req = 0
+    outs = {}
+    for tag, sensor in (("free", g_free), ("limits", g_box)):
+        for _ in range(3):
+            before = chol_kern.chol_inv_logdet_cuda.launches
+            outs[tag] = sensor(Ptft)
+            n_req += 1
+            if chol_kern.chol_inv_logdet_cuda.launches - before < 1:
+                fail(f"a GPRSensor request ({tag}) did not launch "
+                     "csrc/chol.cu")
+    sync()
+    gp_sensor_launches = chol_kern.chol_inv_logdet_cuda.launches
+    a_free_ref, s_free_ref = gm.predict(Ptft)
+    x_free_ref = gm.reconstruct(a_free_ref).T
+    a_box_ref, _ = gm.predict(Ptft, limits=gp_limits, max_iter=SERVE_ITERS,
+                              tol=0.0)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    e_free = max(rel(outs["free"][1], a_free_ref),
+                 rel(outs["free"][2], s_free_ref),
+                 rel(outs["free"][0], x_free_ref))
+    e_box = rel(outs["limits"][1], a_box_ref)
+    g_at = violation(outs["limits"][0], gp_limits)[1]
+    t_free = per_call_ms({0: lambda: g_free(Ptft)}, reps=20, warmup=2)[0]
+    t_box = per_call_ms({0: lambda: g_box(Ptft)}, reps=10, warmup=2)[0]
+    log(f"  unconstrained sensor vs GPR.predict + reconstruct: max rel "
+        f"{e_free:.4e} (≤ {GP_SERVE_REL}); with limits vs GPR.predict("
+        f"limits=…, max_iter={SERVE_ITERS}, tol=0): max|ΔA|/max|A| "
+        f"{e_box:.4e} (≤ {GP_SERVE_MAP_REL}), {g_at} field entries at a "
+        f"limit (within 1e-6 of the span); chol launches "
+        f"{gp_sensor_launches} in {n_req} requests; per request batch of "
+        f"{Ptft.shape[0]} points: unconstrained {t_free[0]:.4f} ms (min "
+        f"{t_free[1]:.4f}, max {t_free[2]:.4f}), with limits "
+        f"{t_box[0]:.4f} ms (min {t_box[1]:.4f}, max {t_box[2]:.4f})")
+    for tag, (f_, a_, s_) in outs.items():
+        if not all(bool(torch.isfinite(t).all()) for t in (f_, a_, s_)):
+            fail(f"GPRSensor ({tag}) output is not finite")
+    if not e_free <= GP_SERVE_REL:
+        fail(f"GPRSensor disagrees with GPR.predict: {e_free:.3e}")
+    if not e_box <= GP_SERVE_MAP_REL:
+        fail(f"constrained GPRSensor disagrees with the eager MAP: "
+             f"{e_box:.3e}")
+    for r_ in records:
+        if r_["name"] == "chol_inv_logdet_cuda":
+            r_["launches"] += gp_sensor_launches
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- CPOD -------------------------------------------------------------
+    log("phase 11: ROM.CPOD on the 41 flagship snapshots, limits only "
+        "(max_iter 4000, tol 1e-9)")
+    t_phase = time.perf_counter()
+    rom = ROM(flag["X_train"], 9, flag["xyz"])
+    rom.fit(select_modes="number", n_modes=14)
+    a_ev = torch.cuda.Event(enable_timing=True)
+    b_ev = torch.cuda.Event(enable_timing=True)
+    a_ev.record()
+    rom.CPOD(limits=limits)
+    b_ev.record()
+    b_ev.synchronize()
+    cpod_ms = a_ev.elapsed_time(b_ev)
+    its = rom.admm_info.iterations.cpu().numpy()
+    cpod_reads = host_syncs(lambda: rom.CPOD(limits=limits))
+    lo_s, hi_s = rom.scale_limits(limits)
+    z = rom.Ur @ rom.Ar.T
+    viol = torch.clamp(torch.maximum(lo_s[:, None] - z, z - hi_s[:, None]),
+                       min=0.0)
+    viol_rel = float((viol / (hi_s - lo_s)[:, None]).max())
+    log(f"  {cpod_ms:.2f} ms (CUDA events, first call); iterations per "
+        f"snapshot {its.tolist()}; synchronizing calls {cpod_reads} (one "
+        f"flag every 16 iterations, and the result's); largest violation of "
+        f"the scaled limits "
+        f"{viol_rel:.4e} of their width")
+    if not bool(torch.isfinite(rom.Ar).all()) or tuple(rom.Ar.shape) != (41, 14):
+        fail("CPOD coefficients are not finite of shape (41, 14)")
+    if not viol_rel <= SERVE_VIOL_REL:
+        fail(f"CPOD reconstruction violates the limits by {viol_rel:.3e}")
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -17,12 +17,20 @@ of the basis fitted on the model's device; its results stay on the host.
 It also scales the test points in float64 (the JAX package scales them in
 the ambient dtype first), so the whole GP stage runs in double.
 
+Constrained prediction (MultiTask only): each test point's posterior mean
+is replaced by the MAP of its posterior Gaussian under the stacked
+``limits``/``bc``/``constraints`` set, one batched whitened ADMM over the
+points (:func:`..linalg.boxls.box_constrained_map`).  With
+``engine='host'`` the posterior is the host float64 one, the ADMM runs on
+the model's device in the basis's dtype (as the JAX package's runs on its
+device whatever the engine), and the result comes back to the host in
+float64 like every host-engine prediction.
+
 Not ported in this slice, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: ``predict`` with ``limits``/``bc``/``constraints``
-(the ADMM box-QP, A.7), ``update`` (A.9), ``update_basis`` (A.14).
-``PIGPR`` is A.9 too.  The JAX package's documented deviations from the
-reference (``Vr_sigma`` at the trained hyperparameters, SingleTask
-constrained predict raising) carry over.
+ROADMAP.md item: ``update`` (A.9), ``update_basis`` (A.14).  ``PIGPR`` is
+A.9 too.  The JAX package's documented deviations from the reference
+(``Vr_sigma`` at the trained hyperparameters, SingleTask constrained
+predict raising) carry over.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from ..core import scaling as _scaling
 from ..core.device import DeviceLike, as_tensor, to_numpy
 from ..core.host64 import tree_f64
+from ..linalg import boxls as _boxls
 from ..linalg import svd as _svd
 from ..rom.rom import ROM
 from . import exact_gp as E
@@ -364,33 +373,59 @@ class GPR(ROM):
                                   self._train_Y, P0_star)
         return MultitaskPosterior(mean=m, stddev=s)
 
+    def _state_constraint_parts(self, limits, bc):
+        """State-space constraint parts of the constrained MAP: the
+        physical ``limits`` box on ``S = Ur·diag(Σ_r)`` and the ``bc``
+        equality pins, scaled with the model's own statistics — shared by
+        :meth:`predict` and ``serving.GPRSensor.from_gpr``.  ``bc`` values
+        are (n_bc,) fixed or (n_bc, n_p) per point; callers validate the
+        shape policy.  ``S`` is built only when a part needs it."""
+        parts = []
+        if limits is None and bc is None:
+            return parts
+        S = self.Ur * self.Sigma_r[None, :]
+        if limits is not None:
+            lo_b, hi_b = self.scale_limits(limits)
+            parts.append(_boxls.LinearConstraints(S, lo_b, hi_b))
+        if bc is not None:
+            rows = np.asarray(bc[0], dtype=int)
+            values = np.asarray(bc[1], dtype=float)
+            cnt = to_numpy(self.X_cnt)[rows, 0]
+            scl = to_numpy(self.X_scl)[rows, 0]
+            if values.ndim == 1:
+                v0 = (values - cnt) / scl
+            else:
+                v0 = ((values - cnt[:, None]) / scl[:, None]).T
+            v0 = as_tensor(v0, self.device)
+            rows_t = torch.as_tensor(rows, device=self.device)
+            parts.append(_boxls.LinearConstraints(S[rows_t, :], v0, v0))
+        return parts
+
     def predict(self, P_star, problem_dict=None, limits=None, bc=None,
                 constraints=None, **kwargs):
         """Posterior POD coefficients at new parameters ``P_star`` (n_p, d)
         or (d,).  Returns ``(A_pred, A_sigma)``, each (n_p, r): on the
         model's device, or on the host in float64 for ``engine='host'``.
 
-        Constrained prediction (``limits``, ``bc``, ``constraints``, or a
-        ``problem_dict`` holding them) needs the ADMM box-QP solver and is
-        not ported yet (ROADMAP.md §A item 7)."""
-        del kwargs
+        Constrained prediction (MultiTask only): each point's posterior
+        mean is replaced by the MAP of its posterior Gaussian under the
+        constraint set, one batched whitened ADMM over the points.  The set
+        composes from ``limits=[min, max]`` (per-feature box on the
+        reconstructed field), ``bc=(rows, values)`` (state-row equality
+        pins, ``values`` (n_bc, n_p) per point or (n_bc,)) and
+        ``constraints`` (a :class:`..linalg.boxls.LinearConstraints` on the
+        normalized coefficients v, bounds optionally batched over points);
+        ``problem_dict={'limits':…, 'bc':…, 'constraints':…}`` is accepted
+        for signature parity with the reference.  ``max_iter`` (4000) and
+        ``tol`` (1e-9) of the ADMM come from ``kwargs``."""
         if not hasattr(self, "models"):
             raise AttributeError("The function fit has to be called "
                                  "before calling predict.")
-        if problem_dict is not None:
-            limits = limits if limits is not None else problem_dict.get(
-                "limits")
-            bc = bc if bc is not None else problem_dict.get("bc")
-            constraints = constraints if constraints is not None else \
-                problem_dict.get("constraints")
-        if limits is not None or bc is not None or constraints is not None:
-            raise NotImplementedError(
-                "GPR.predict with limits/bc/constraints (the ADMM box-QP "
-                "solver) is not ported yet (ROADMAP.md §A item 7).")
         host = getattr(self, "engine", "device") == "host"
         P_star = as_tensor(P_star, self.device, dtype=self.P_cnt.dtype)
         if P_star.ndim < 2:
             P_star = P_star[None, :]
+        n_p = P_star.shape[0]
         cnt, scl = self.P_cnt[0], self.P_scl[0]
         if host:
             # the host engine scales the test points in float64 too: the
@@ -399,8 +434,46 @@ class GPR(ROM):
         P0_star = (P_star - cnt[None, :]) / scl[None, :]
 
         post = self._posterior_all(P0_star)
+        V_pred, V_sigma = post.mean, post.stddev
+
+        if problem_dict is not None:
+            limits = limits if limits is not None else problem_dict.get(
+                "limits")
+            bc = bc if bc is not None else problem_dict.get("bc")
+            constraints = constraints if constraints is not None else \
+                problem_dict.get("constraints")
+        if bc is not None:
+            values = np.asarray(bc[1], dtype=float)
+            if values.ndim == 1:
+                values = values[:, None]
+            if values.shape[1] != n_p:
+                raise ValueError(
+                    f"bc values must be (n_bc, n_p={n_p}); got "
+                    f"{values.shape}")
+            bc = (bc[0], values)
+        parts = self._state_constraint_parts(limits, bc)
+        if constraints is not None:
+            cs_user, _ = _boxls.build_constraint_set(constraints, None)
+            parts.append(cs_user)
+
+        if parts:
+            if self.gpr_type != "MultiTask":
+                raise NotImplementedError(
+                    "Constrained prediction only works for MultiTask models.")
+            cs = _boxls.concat_constraints(parts)
+            A, lo, hi = (as_tensor(x, self.device, dtype=self.Ur.dtype)
+                         for x in cs)
+            mu, sig = (as_tensor(x, self.device, dtype=self.Ur.dtype)
+                       for x in (V_pred, V_sigma))
+            V_pred, _ = _boxls.box_constrained_map(
+                mu, torch.diag_embed(sig ** 2), A, lo, hi, AtA=A.T @ A,
+                max_iter=kwargs.get("max_iter", 4000),
+                tol=kwargs.get("tol", 1e-9))
+            if host:
+                V_pred = tree_f64(V_pred)
+
         sig = tree_f64(self.Sigma_r) if host else self.Sigma_r
-        return post.mean * sig[None, :], post.stddev * sig[None, :]
+        return V_pred * sig[None, :], V_sigma * sig[None, :]
 
     # ------------------------------------------------------------------ #
     # Later slices

@@ -5,9 +5,14 @@ Public attributes mirror the JAX package: ``X_cnt, X_scl, X0, Ur, Ar, Vr,
 Sigma_r, r`` — torch tensors on the model's device.  ``X`` keeps whatever
 the caller passed (numpy array or tensor).
 
-Not ported in this slice, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: ``CPOD`` and ``adaptive_sampling`` (A.7, they need the
-ADMM box-QP solver), ``update_basis`` (A.14, incremental SVD).
+``CPOD`` solves all m per-snapshot box-constrained projections as one
+batched ADMM box-QP (:mod:`..linalg.boxls`).  ``adaptive_sampling`` keeps
+the JAX package's deviation from the reference: the leave-one-out
+influence uses the intended rank-1 projector, and the sampling call does
+not overwrite the fitted scaling statistics.
+
+Not ported in this slice, raising ``NotImplementedError`` naming its
+ROADMAP.md item: ``update_basis`` (A.14, incremental SVD).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from ..core import scaling as _scaling
 from ..core.device import DeviceLike, as_tensor, resolve_device, to_numpy
+from ..linalg import boxls as _boxls
 from ..linalg import svd as _svd
 
 
@@ -108,10 +114,11 @@ class ROM:
                 "those features, or use scale_type='none'.")
         self.X_cnt = X_cnt
         self.X_scl = X_scl
-        # new statistics invalidate SPR's cached C @ X_cnt and host copy of
-        # the scales
+        # new statistics invalidate SPR's cached C @ X_cnt, host copy of
+        # the scales and COLS constraint set
         self._cnt_vector_cache = None
         self._scl_vector_cache = None
+        self._cols_cache = None
         return X0
 
     def scale_limits(self, limits: Sequence):
@@ -213,6 +220,117 @@ class ROM:
         return _scaling.unscale_data(self.Ur @ Ar.T, self.X_cnt, self.X_scl)
 
     # ------------------------------------------------------------------ #
+    # CPOD
+    # ------------------------------------------------------------------ #
+
+    def CPOD(self, limits=None, solver_fn=None, max_iter: int = 4000,
+             tol: float = 1e-9, over_relax: float = 1.6, solver_config=None,
+             constraints=None):
+        """Constrained POD: per snapshot i solve
+        ``min ‖Ur g − x0_i‖²  s.t. limits0[0] ≤ Ur g ≤ limits0[1]`` and
+        replace ``Ar ← G``, ``Vr ← G / Σ_r``.  Call after :meth:`fit`.
+
+        All m snapshots solve as one batched ADMM box-QP.  ``constraints``
+        (a :class:`..linalg.boxls.LinearConstraints`, a raw (A, lo, hi)
+        triple or a list of either, in scaled coefficient space; ``lo``/``hi``
+        may carry a per-snapshot leading axis) composes with ``limits``.
+        ``solver_config`` (:class:`..core.config.SolverConfig`) overrides
+        max_iter/tol/over_relax.  ``solver_fn(Ur, x0_i, g_init) -> g`` is the
+        escape hatch for nonlinear constraint sets, called per snapshot on
+        the host; ``self.admm_info`` is then None."""
+        if solver_config is not None:
+            max_iter = solver_config.max_iter
+            tol = solver_config.tol
+            over_relax = solver_config.over_relax
+        if solver_fn is not None:
+            Gr = np.zeros_like(to_numpy(self.Ar))
+            for i in range(Gr.shape[0]):
+                Gr[i, :] = to_numpy(solver_fn(self.Ur, self.X0[:, i],
+                                              self.Ar[i, :]))
+            Gr = self._t(Gr)
+            self.admm_info = None
+        else:
+            Ur = self.Ur
+            # UrᵀUr is I only for an unmasked orthonormal basis
+            H = Ur.T @ Ur
+            box = None
+            if limits is not None:
+                lo_b, hi_b = self.scale_limits(limits)
+                box = (Ur, lo_b, hi_b)
+            cs, box_only = _boxls.build_constraint_set(constraints, box)
+            if cs is None:
+                raise ValueError(
+                    "CPOD requires `limits`, `constraints`, or a solver_fn.")
+            lo, hi = (as_tensor(x, self.device, dtype=Ur.dtype)
+                      for x in (cs.lo, cs.hi))
+            if box_only:
+                A_c, AtA = Ur, H                 # reuse the Ur Gram
+            else:
+                A_c = as_tensor(cs.A, self.device, dtype=Ur.dtype)
+                AtA = A_c.T @ A_c
+            Gr, info = _boxls.admm_box_qp(
+                H, self.X0.T @ Ur, A_c, lo, hi, AtA=AtA, max_iter=max_iter,
+                tol=tol, over_relax=over_relax)
+            # per-snapshot diagnostics: a primal residual far above tol after
+            # the full budget flags an infeasible set
+            self.admm_info = info
+        self.Ar = Gr
+        self.Vr = Gr / self.Sigma_r[None, :]
+
+    # ------------------------------------------------------------------ #
+    # Adaptive sampling
+    # ------------------------------------------------------------------ #
+
+    def adaptive_sampling(self, P, scale_type: str = "std", seed=None):
+        """DoE enrichment: leave-one-snapshot-out SVD influence × Latin
+        hypercube candidate distance; returns the candidate parameter point
+        (d,) of largest potential.
+
+        The influence of snapshot k uses the rank-1 projector ``I − v_k
+        v_kᵀ`` (the JAX package's deviation: the reference's literal scalar
+        product ``Vt[k,:] @ V[k,:]`` is a bug).  The snapshots are scaled
+        with ``scale_type`` by the module-level function, leaving the fitted
+        statistics alone.  ``svd_tall`` runs at its default refine depth for
+        the model's device.  The candidates come from
+        ``scipy.stats.qmc.LatinHypercube(seed=seed)`` on the host."""
+        from scipy.stats import qmc
+
+        X0, _, _ = _scaling.scale_data(self._t(self.X), self.n_features,
+                                       scale_type, 1)
+        _, S, Vt = _svd.svd_tall(X0)
+        V = Vt.T
+        p = V.shape[0]
+        eye = torch.eye(p, dtype=X0.dtype, device=X0.device)
+
+        def influence(ks):
+            v = V[:, ks].T                                   # (k, p)
+            M = S[:, None] * (eye - v[:, :, None] * v[:, None, :])
+            Un = torch.linalg.svd(M, full_matrices=False)[0]
+            inf_ui = 1.0 / torch.abs(torch.diagonal(Un, dim1=-2,
+                                                    dim2=-1)) - 1.0
+            return torch.sum(S * inf_ui, dim=-1)
+
+        # batched (p, p) workspaces are O(p³) memory: at most 64 snapshots
+        # per batch
+        ks = torch.arange(p, device=X0.device)
+        inf_basis = torch.cat([influence(ks[k:k + 64])
+                               for k in range(0, p, 64)])
+        inf_rel = to_numpy(inf_basis / torch.sum(inf_basis))
+
+        P = np.asarray(P)
+        n_dim = P.shape[1]
+        sampler = qmc.LatinHypercube(d=n_dim, seed=seed)
+        q = 100 * n_dim
+        sample0 = sampler.random(n=q)
+        span = P.max(axis=0) - P.min(axis=0)
+        sample = span[None, :] * sample0 + P.min(axis=0)[None, :]
+
+        dist = np.linalg.norm(sample[:, None, :] - P[None, :, :], axis=2)
+        j = np.argmin(dist, axis=1)
+        pot = dist[np.arange(q), j] * inf_rel[j]
+        return sample[np.argmax(pot), :]
+
+    # ------------------------------------------------------------------ #
     # Later slices
     # ------------------------------------------------------------------ #
 
@@ -220,11 +338,3 @@ class ROM:
         raise NotImplementedError(
             "ROM.update_basis (incremental SVD) is not ported yet "
             "(ROADMAP.md §A item 14).")
-
-    def CPOD(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ROM.CPOD (ADMM box-QP) is not ported yet (ROADMAP.md §A item 7).")
-
-    def adaptive_sampling(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ROM.adaptive_sampling is not ported yet (ROADMAP.md §A item 7).")

@@ -3,19 +3,23 @@
 
 * ``optimal_placement('qr')`` → greedy column-pivoted QR of Urᵀ, on the card
   by the CUDA kernel (``linalg.qrcp_cuda``);
-* ``predict`` → the weighted gappy-POD least squares, a batched float64
-  pinv on the HOST.  Porting trap 9: that is the JAX package's design (the
-  (s, r) systems are tiny but can be ill-conditioned, cond ~1e4-1e5 on
-  flame-scale placements, where an fp32 device pinv costs ~5e-4 field
-  NRMSE), not a device fallback; it is kept exactly.
+* ``predict`` OLS → the weighted gappy-POD least squares, a batched
+  float64 pinv on the HOST.  Porting trap 9: that is the JAX package's
+  design (the (s, r) systems are tiny but can be ill-conditioned, cond
+  ~1e4-1e5 on flame-scale placements, where an fp32 device pinv costs ~5e-4
+  field NRMSE), not a device fallback; it is kept exactly.
+* ``predict`` COLS → the box-constrained least squares of every
+  measurement vector as one batched ADMM on the model's device
+  (:mod:`..linalg.boxls`), against the stacked ``limits``/``constraints``
+  set, built once per train and cached with its exact operator Gram.
 
 A σ=0 entry inside an otherwise-weighted measurement vector receives the
 largest finite weight of that vector (the JAX package's documented
 deviation from the reference's literal 1/0).
 
 Not ported in this slice, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: ``method='COLS'`` and ``constraints`` (A.7), the
-``gem``/``dg``/``vdg`` placements (A.11), ``update_basis`` (A.14).
+ROADMAP.md item: the ``gem``/``dg``/``vdg`` placements (A.11),
+``update_basis`` (A.14).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.device import as_tensor, to_numpy
+from ..linalg import boxls as _boxls
 from ..linalg import qrcp as _qrcp
 from ..linalg.qrcp_cuda import qrcp_pivots_auto
 from ..rom.rom import ROM, apply_sampling, scale_measurement_values
@@ -68,10 +73,12 @@ class SPR(ROM):
     # ------------------------------------------------------------------ #
 
     def _invalidate_trained_state(self):
-        """Refit hook: a new basis orphans the trained ``Theta``."""
+        """Refit hook: a new basis orphans the trained ``Theta`` and any
+        cached COLS constraint set."""
         if getattr(self, "Theta", None) is not None:
             del self.Theta
             self._needs_retrain = True
+        self._cols_cache = None
 
     def optimal_placement(self, calc_type: str = "qr", n_sensors: int = 10,
                           mask=None, d_min: float = 0.0,
@@ -112,16 +119,31 @@ class SPR(ROM):
     # ------------------------------------------------------------------ #
 
     def train(self, C, is_Theta: bool = False, limits=None,
-              method: str = "OLS", cond: bool = False, verbose: bool = False,
-              constraints=None):
+              method: str = "OLS", solver: str = "ADMM", cond: bool = False,
+              verbose: bool = False, admm_max_iter: int = 4000,
+              admm_tol: float = 1e-9, admm_over_relax: float = 1.6,
+              solver_config=None, constraints=None):
         """Store the measurement operator ``C`` (s, n) — dense (numpy or
         tensor) or ``scipy.sparse`` — and ``Theta = C @ Ur``; with
         ``is_Theta=True``, ``C`` is Theta itself.  ``cond=True`` stores the
-        condition number of Theta (host f64 SVD) as ``self.k``."""
-        if method == "COLS" or constraints is not None:
-            raise NotImplementedError(
-                "method='COLS' and constraints (ADMM box-constrained least "
-                "squares) are not ported yet (ROADMAP.md §A item 7).")
+        condition number of Theta (host f64 SVD) as ``self.k``.
+
+        ``method='COLS'`` makes :meth:`predict` solve under
+        ``limits=[min_per_feature, max_per_feature]`` (the physical box)
+        and/or ``constraints`` (a
+        :class:`..linalg.boxls.LinearConstraints`, a raw (A, lo, hi) triple
+        or a list of either, stacked; scaled coefficient space, bounds
+        optionally batched per measurement vector).  ``admm_max_iter``,
+        ``admm_tol`` and ``admm_over_relax`` are the ADMM knobs, overridden
+        by ``solver_config`` (:class:`..core.config.SolverConfig`);
+        ``solver`` is kept for signature parity (ADMM is the only one)."""
+        if solver_config is not None:
+            admm_max_iter = solver_config.max_iter
+            admm_tol = solver_config.tol
+            admm_over_relax = solver_config.over_relax
+        if constraints is not None:
+            constraints, _ = _boxls.build_constraint_set(constraints)
+        self.constraints = constraints
         if (C.shape[1] != self.X.shape[0]) and not is_Theta:
             raise ValueError("The number of columns of C does not match the"
                              " number of rows of X.")
@@ -144,9 +166,14 @@ class SPR(ROM):
 
         self.Theta = Theta
         self._needs_retrain = False
+        self._cols_cache = None
         self.limits = limits
         self.method = method
+        self.solver = solver
         self.verbose = verbose
+        self.admm_max_iter = admm_max_iter
+        self.admm_tol = admm_tol
+        self.admm_over_relax = admm_over_relax
 
         if cond:
             # host f64 SVD of Theta directly: cond(pinv(Theta)) == cond(Theta)
@@ -175,7 +202,11 @@ class SPR(ROM):
         """Gappy-POD solve for one measurement vector (s, 3) or a list.
 
         Returns (Ar, Ar_sigma), each (n_vectors, r), tensors on the model's
-        device in Theta's dtype.  OLS: weighted pinv, host float64."""
+        device in Theta's dtype.  OLS: weighted pinv, host float64.  COLS:
+        box-constrained least squares by ADMM on the model's device, one
+        batch for all vectors; ``self.admm_info`` holds the per-vector
+        iteration counts and residuals (a primal residual far above tol
+        after the full budget flags an infeasible set)."""
         if not hasattr(self, "Theta"):
             if getattr(self, "_needs_retrain", False):
                 raise AttributeError(
@@ -194,9 +225,6 @@ class SPR(ROM):
             if yi.shape[1] != 3:
                 raise ValueError("The y array has the wrong number of columns."
                                  " y has to have dimensions (s,3).")
-        if self.method != "OLS":
-            raise NotImplementedError(
-                "The prediction method selected has not been implemented yet")
 
         n_vec = len(y)
         y0_np = np.stack([self.scale_vector(yi) for yi in y])
@@ -219,6 +247,40 @@ class SPR(ROM):
         sig_prop = np.abs(np.einsum("vrs,vs->vr", pinvs, sig_np))
         ar_sigma_np = np.where(has_sigma[:, None], sig_prop, 0.0)
         dtype = self.Theta.dtype
-        self.admm_info = None            # no ADMM ran for this predict
-        return (as_tensor(ar_np, self.device, dtype=dtype),
-                as_tensor(ar_sigma_np, self.device, dtype=dtype))
+        Ar_sigma = as_tensor(ar_sigma_np, self.device, dtype=dtype)
+
+        if self.method == "OLS":
+            self.admm_info = None            # no ADMM ran for this predict
+            return as_tensor(ar_np, self.device, dtype=dtype), Ar_sigma
+        if self.method != "COLS":
+            raise NotImplementedError(
+                "The prediction method selected has not been implemented yet")
+        A_c, lo, hi, AtA = self._cols_set()
+        Ar, self.admm_info = _boxls.box_constrained_lstsq(
+            self.Theta, as_tensor(y0_np[:, :, 0], self.device, dtype=dtype),
+            as_tensor(w_np, self.device, dtype=dtype), A_c, lo, hi, AtA=AtA,
+            max_iter=self.admm_max_iter, tol=self.admm_tol,
+            over_relax=self.admm_over_relax)
+        return Ar, Ar_sigma
+
+    def _cols_set(self):
+        """The stacked COLS constraint set ``(A_c, lo, hi, AᵀA)`` in
+        Theta's dtype on the model's device, built once per train: the
+        limits, the constraints and Ur are train-time constants, and the
+        O(n r²) Gram is exact (``UrᵀUr`` is not I after a masked
+        placement)."""
+        if getattr(self, "_cols_cache", None) is None:
+            box = None
+            if self.limits is not None:
+                lo_b, hi_b = self.scale_limits(self.limits)
+                box = (self.Ur, lo_b, hi_b)
+            cs, _ = _boxls.build_constraint_set(
+                getattr(self, "constraints", None), box)
+            if cs is None:
+                raise ValueError(
+                    "method='COLS' requires physical `limits` (or a "
+                    "`constraints` set) passed to train(C, ...).")
+            A_c, lo, hi = (as_tensor(x, self.device, dtype=self.Theta.dtype)
+                           for x in cs)
+            self._cols_cache = (A_c, lo, hi, A_c.T @ A_c)
+        return self._cols_cache

@@ -1,0 +1,472 @@
+"""Low-latency soft-sensor serving (port of ``openmeasure_tpu/serving.py``:
+``SoftSensor`` and ``GPRSensor``).
+
+A fitted model is packaged for streaming inference: its state lives on the
+card, and one call runs a whole batch of measurements — scaling, the
+gappy-POD solve (or the GP posterior), the optional constrained ADMM and
+the reconstruction — with no read back to the host::
+
+    sensor = SoftSensor.from_spr(spr)              # spr after fit + train
+    x_hat = sensor(y_values)                       # (s,) -> (n,) field
+    x_hat, a, sigma = sensor.predict_full(y_values, y_sigma)
+    fields, A, sig = sensor.predict_batch(Y)       # (b, s) -> (b, n)
+
+    gsensor = GPRSensor.from_gpr(gpr, limits=[lo, hi])
+    fields, A, A_sigma = gsensor(P_star)           # (q, d) -> (q, n)
+
+As in the JAX package, the model state is a dict passed to module-level
+functions (``_predict_math``, ``_gpr_predict_math``), not closed over, so
+every sensor of one shape runs the same code on its own state.  Where the
+JAX package ``vmap``s the single-request math over a batch, the math here
+takes the batch as a leading axis.  The constrained solves run a fixed
+iteration budget (``tol = 0``): every request does the same work, and the
+budget is the accuracy knob.
+
+Sharding the state over several cards (``shard``, ``shard_state_rows``)
+and loading ``.npz`` checkpoints (``load``) come with ROADMAP.md §A item
+14, and raise until then.  The JAX package's BCOO measurement operators
+are not taken (§A item 6).
+
+Documented deviation: ``GPRSensor.from_gpr`` casts the GP parameters and
+training set to the sensor's dtype (the basis's) on its device; the JAX
+package leaves them in their own dtype, so a host-engine model's float64
+parameters reach its device program.  A GPR sensor therefore always serves
+in the basis's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from .core.device import DeviceLike, as_tensor, resolve_device, to_numpy
+from .gp.exact_gp import tree_map
+from .gp.gpr import posterior_all_modes
+from .linalg import boxls as _boxls
+
+_ITEM_14 = "(ROADMAP.md §A item 14: sharding and checkpoints)"
+
+
+def shard_state_rows(*args, **kwargs):
+    raise NotImplementedError(
+        f"shard_state_rows (multi-card serving) is not ported yet {_ITEM_14}.")
+
+
+def _predict_math(state, Y_values, Y_sigma, method, admm_iters, over_relax,
+                  adapt_rho=True):
+    """The batched request math: scaling → weighted QR (+ one refinement)
+    solve → optional COLS ADMM → reconstruct + unscale.  ``Y_values`` and
+    ``Y_sigma`` are (b, s); returns fields (b, n), coefficients (b, r) and
+    coefficient σ (b, r)."""
+    y0 = (Y_values - state["cnt_sensors"]) / state["scl_sensors"]
+    sig0 = Y_sigma / state["scl_sensors"]
+    # the weighted path triggers on any NONZERO σ (SPR.predict's test), so
+    # both paths agree even on malformed, negative-σ input
+    use_w = torch.any(Y_sigma != 0, dim=-1, keepdim=True)
+    # a σ=0 entry inside an otherwise-weighted vector gets the LARGEST
+    # finite weight of its vector, as in SPR.predict; a NaN σ propagates
+    pos = sig0 > 0
+    inv_sigma = torch.where(pos, 1.0 / torch.where(pos, sig0, 1.0), 0.0)
+    w_max = torch.amax(inv_sigma, dim=-1, keepdim=True)
+    w = torch.where(use_w, torch.where(pos, inv_sigma, w_max), 1.0)
+    w = torch.where(torch.isnan(sig0), float("nan"), w)
+    # weighted LS by QR + one iterative-refinement step, not pinv: the
+    # scaled per-feature σ make the weights span decades, cond(WΘ) reaches
+    # ~1e5, and an fp32 pinv on the device loses ~1 % there
+    Theta = state["Theta"]
+    WT = Theta * w[..., :, None]                                 # (b, s, r)
+    Q, R = torch.linalg.qr(WT)
+    # rank-deficiency guard: floor R's diagonal at eps-level relative to
+    # max|diag(R)| (a masked placement can leave Θ singular); the all-zero
+    # operator keeps a floor of eps · s
+    d = torch.diagonal(R, dim1=-2, dim2=-1)
+    dmax = torch.amax(torch.abs(d), dim=-1, keepdim=True)
+    floor = (torch.where(dmax > 0, dmax, 1.0)
+             * (torch.finfo(d.dtype).eps * WT.shape[-2]))
+    d_safe = torch.where(torch.abs(d) < floor,
+                         torch.where(d < 0, -floor, floor), d)
+    R = R + torch.diag_embed(d_safe - d)
+
+    def wsolve(rhs):
+        rhs = rhs[..., None]
+        x = torch.linalg.solve_triangular(R, Q.mT @ rhs, upper=True)
+        resid = rhs - WT @ x
+        return (x + torch.linalg.solve_triangular(R, Q.mT @ resid,
+                                                  upper=True))[..., 0]
+
+    if method == "COLS":
+        a, _ = _boxls.box_constrained_lstsq(
+            Theta, y0, w, state["A_c"], state["lo"], state["hi"],
+            AtA=state["AtA"], max_iter=admm_iters, tol=0.0,
+            over_relax=over_relax, adapt_rho=adapt_rho)
+    else:
+        a = torch.where(use_w, wsolve(w * y0), y0 @ state["pinv"].T)
+    a_sigma = torch.where(use_w, torch.abs(wsolve(sig0)), 0.0)
+    x = (a @ state["Ur"].T) * state["X_scl"] + state["X_cnt"]
+    return x, a, a_sigma
+
+
+def _predict_one(state, y_values, y_sigma, *, method, admm_iters,
+                 over_relax, adapt_rho=True):
+    x, a, s = _predict_math(state, y_values[None], y_sigma[None], method,
+                            admm_iters, over_relax, adapt_rho)
+    return x[0], a[0], s[0]
+
+
+def _measurement_scaling(C, X_cnt, X_scl, n_points, feature_ids=None):
+    """Per-measurement centering (``C @ X_cnt``) and scaling from a dense
+    (numpy or tensor) or ``scipy.sparse`` measurement operator, on the
+    host in float64 where the inputs are.
+
+    A one-hot C (the QR placement) takes each measurement's scale from its
+    selected row; a general C needs ``feature_ids`` (s,), the feature index
+    of each measurement."""
+    if sp.issparse(C):
+        cnt_sensors = np.asarray(C.dot(X_cnt)).ravel()
+        # one-hot detection on the duplicate-summed form: two raw (i, j)
+        # ones make a row value of 2
+        Cc = C.tocsr().copy()
+        Cc.sum_duplicates()
+        row_nnz = np.diff(Cc.indptr)
+        one_hot = bool(np.all(row_nnz == 1) and np.all(Cc.data == 1.0))
+        argmax_rows = np.asarray(Cc.argmax(axis=1)).ravel()
+    else:
+        Cd = to_numpy(C)
+        cnt_sensors = Cd @ X_cnt
+        one_hot = bool(np.all((Cd != 0).sum(axis=1) == 1)
+                       and np.all(Cd[Cd != 0] == 1.0))
+        argmax_rows = np.argmax(Cd, axis=1)
+
+    if feature_ids is not None:
+        scl_sensors = X_scl[np.asarray(feature_ids, int) * n_points]
+    elif one_hot:
+        scl_sensors = X_scl[argmax_rows]
+    else:
+        raise ValueError(
+            "C is not one-hot: pass feature_ids (the per-measurement "
+            "feature indices) so measurement scaling is well-defined.")
+    return cnt_sensors, scl_sensors
+
+
+def _check_rho(admm_rho: str) -> str:
+    if admm_rho not in ("adaptive", "fixed"):
+        raise ValueError(
+            f"admm_rho must be 'adaptive' or 'fixed'; got {admm_rho!r}")
+    return admm_rho
+
+
+class SoftSensor:
+    """A packaged gappy-POD soft sensor: state on ``device`` (``None``
+    means the card) in ``dtype``.
+
+    ``method='COLS'`` serves the constrained model: the solve is the ADMM
+    box-QP against the constraint set captured at train time, run for a
+    fixed budget of ``admm_iters`` iterations.  ``admm_rho='fixed'`` keeps
+    ρ at its scale-matched start, factorizes once and skips the residual
+    norms; ``'adaptive'`` (the default) balances the residuals, which is
+    more robust on ill-scaled problems."""
+
+    def __init__(self, Ur, Theta, cnt_sensors, scl_sensors, X_cnt, X_scl,
+                 dtype=torch.float32, method: str = "OLS",
+                 constraint_A=None, constraint_lo=None, constraint_hi=None,
+                 admm_iters: int = 300, admm_over_relax: float = 1.6,
+                 admm_rho: str = "adaptive", device: DeviceLike = None):
+        self.device = resolve_device(device)
+
+        def t(x):
+            return as_tensor(x, self.device, dtype=dtype)
+
+        self.Ur = t(Ur)
+        self.Theta = t(Theta)
+        self.cnt_sensors = t(cnt_sensors)
+        self.scl_sensors = t(scl_sensors)
+        self.X_cnt = t(X_cnt).reshape(-1)
+        self.X_scl = t(X_scl).reshape(-1)
+        self.r = self.Theta.shape[1]
+        self.s = self.Theta.shape[0]
+        self.n = int(self.Ur.shape[0])
+        self.method = method
+        self.admm_iters = int(admm_iters)
+        self.admm_over_relax = float(admm_over_relax)
+        self.admm_rho = _check_rho(admm_rho)
+        # the solve operator, once, on the host in float64: the stored
+        # operator carries no device-SVD error
+        pinv = t(np.linalg.pinv(to_numpy(Theta).astype(np.float64)))
+        self._state = {"Ur": self.Ur, "Theta": self.Theta,
+                       "cnt_sensors": self.cnt_sensors,
+                       "scl_sensors": self.scl_sensors,
+                       "X_cnt": self.X_cnt, "X_scl": self.X_scl,
+                       "pinv": pinv}
+        if method == "COLS":
+            if constraint_A is None or constraint_lo is None \
+                    or constraint_hi is None:
+                raise ValueError(
+                    "method='COLS' needs constraint_A/lo/hi (scaled "
+                    "coefficient-space constraint set).")
+            A_c = t(constraint_A)
+            self._state.update(A_c=A_c, lo=t(constraint_lo),
+                               hi=t(constraint_hi), AtA=A_c.T @ A_c)
+        elif method != "OLS":
+            raise NotImplementedError(f"serving method {method!r}")
+        self._kw = dict(method=method, admm_iters=self.admm_iters,
+                        over_relax=self.admm_over_relax,
+                        adapt_rho=self.admm_rho == "adaptive")
+
+    @classmethod
+    def from_spr(cls, spr, feature_ids=None, dtype=torch.float32,
+                 admm_iters: int = 300,
+                 admm_rho: str = "adaptive") -> "SoftSensor":
+        """Package a trained :class:`openmeasure_torch.SPR` (after fit +
+        train) on the model's device.  C may be dense or ``scipy.sparse``.
+
+        A one-hot C (QR placement) gives the per-measurement scaling
+        directly; a general C needs ``feature_ids`` (s,).  A model trained
+        with ``method='COLS'`` carries its stacked ``limits``/``constraints``
+        set (unbatched bounds only) into the sensor."""
+        X_cnt = to_numpy(spr.X_cnt)[:, 0]
+        X_scl = to_numpy(spr.X_scl)[:, 0]
+        cnt_sensors, scl_sensors = _measurement_scaling(
+            spr.C, X_cnt, X_scl, spr.n_points, feature_ids)
+
+        method = getattr(spr, "method", "OLS")
+        kw = {}
+        if method == "COLS":
+            box = None
+            if getattr(spr, "limits", None) is not None:
+                lo, hi = spr.scale_limits(spr.limits)
+                box = (spr.Ur, lo, hi)
+            stacked, _ = _boxls.build_constraint_set(
+                getattr(spr, "constraints", None), box)
+            if stacked is None:
+                raise ValueError(
+                    "COLS model has neither limits nor constraints.")
+            if stacked.batched:
+                raise ValueError(
+                    "per-request batched constraint bounds cannot be "
+                    "baked into a serving model; use unbatched bounds.")
+            kw = dict(constraint_A=stacked.A, constraint_lo=stacked.lo,
+                      constraint_hi=stacked.hi)
+        return cls(spr.Ur, spr.Theta, cnt_sensors, scl_sensors,
+                   X_cnt, X_scl, dtype, method=method,
+                   admm_iters=admm_iters, admm_rho=admm_rho,
+                   admm_over_relax=getattr(spr, "admm_over_relax", 1.6),
+                   device=spr.device, **kw)
+
+    @classmethod
+    def load(cls, *args, **kwargs):
+        raise NotImplementedError(
+            f"SoftSensor.load (.npz checkpoints) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def shard(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"SoftSensor.shard (multi-card serving) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def predict_full(self, y_values, y_sigma=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One request: (field (n,), coefficients (r,), coefficient σ
+        (r,)); a scalar ``y_sigma`` broadcasts."""
+        y_values = as_tensor(y_values, self.device, dtype=self.Ur.dtype)
+        if tuple(y_values.shape) != (self.s,):
+            raise ValueError(
+                f"y_values must be (s={self.s},); got "
+                f"{tuple(y_values.shape)}. Use predict_batch for (batch, s) "
+                "frames.")
+        if y_sigma is None:
+            y_sigma = torch.zeros_like(y_values)
+        else:
+            y_sigma = torch.broadcast_to(
+                as_tensor(y_sigma, self.device, dtype=self.Ur.dtype),
+                y_values.shape)
+        return _predict_one(self._state, y_values, y_sigma, **self._kw)
+
+    def __call__(self, y_values, y_sigma=None) -> torch.Tensor:
+        return self.predict_full(y_values, y_sigma)[0]
+
+    def predict_batch(self, Y_values, Y_sigma=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """A batch of requests ``Y_values`` (b, s) → (fields (b, n),
+        coefficients (b, r), coefficient σ (b, r)) in one call, with no read
+        back to the host: frame streams should batch."""
+        Y_values = as_tensor(Y_values, self.device, dtype=self.Ur.dtype)
+        if Y_values.ndim != 2 or Y_values.shape[1] != self.s:
+            raise ValueError(
+                f"Y_values must be (batch, s={self.s}); got "
+                f"{tuple(Y_values.shape)}.")
+        if Y_sigma is None:
+            Y_sigma = torch.zeros_like(Y_values)
+        else:
+            Y_sigma = as_tensor(Y_sigma, self.device, dtype=self.Ur.dtype)
+        return _predict_math(self._state, Y_values, Y_sigma, **self._kw)
+
+    def warmup(self) -> "SoftSensor":
+        """Run one request, so the first real one finds the library
+        handles and workspaces made."""
+        self.predict_full(torch.zeros(self.s, dtype=self.Ur.dtype,
+                                      device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+
+# ---------------------------------------------------------------------- #
+# GPR serving: parameters -> field
+# ---------------------------------------------------------------------- #
+
+def _gpr_predict_math(state, P_star, mean_spec, kernel_spec,
+                      likelihood_spec, gpr_type, constrained, admm_iters,
+                      over_relax, adapt_rho=True):
+    """Posterior at the scaled design points, the optional constrained
+    MAP, the Σ-rescale and the reconstruction: ``GPR.predict`` followed by
+    ``reconstruct``.  With ``constrained``, each point's posterior mean is
+    replaced by the whitened ADMM MAP under the set in ``state``, for a
+    fixed budget (``tol = 0``)."""
+    P0s = (P_star - state["P_cnt"][None, :]) / state["P_scl"][None, :]
+    means, variances = posterior_all_modes(
+        mean_spec, kernel_spec, likelihood_spec, gpr_type,
+        state["params"], state["P0_train"], state["Y"], P0s)
+    V_pred = means.T                                   # (q, r)
+    V_sigma = torch.sqrt(variances).T
+    if constrained:
+        V_pred, _ = _boxls.box_constrained_map(
+            V_pred, torch.diag_embed(variances.T), state["A_c"], state["lo"],
+            state["hi"], AtA=state["AtA"], max_iter=admm_iters, tol=0.0,
+            over_relax=over_relax, adapt_rho=adapt_rho)
+    A = V_pred * state["Sigma_r"][None, :]
+    A_sigma = V_sigma * state["Sigma_r"][None, :]
+    fields = (A @ state["Ur"].T) * state["X_scl"] + state["X_cnt"]
+    return fields, A, A_sigma
+
+
+class GPRSensor:
+    """Packaged parameter→field sensor of a trained
+    :class:`openmeasure_torch.GPR` — ``predict`` + ``reconstruct`` as one
+    call on the model's device::
+
+        sensor = GPRSensor.from_gpr(gpr)       # gpr after fit + train
+        fields, A, A_sigma = sensor(P_star)    # (q, d) -> (q, n) fields
+
+    A constraint set given to :meth:`from_gpr` (``limits`` box, ``bc`` pins,
+    general ``constraints``) is baked in: every request's posterior mean is
+    replaced by the whitened ADMM MAP of the constrained ``GPR.predict``,
+    under a fixed iteration budget."""
+
+    def __init__(self, mean_spec, kernel_spec, likelihood_spec,
+                 gpr_type, state, admm_iters: int = 300,
+                 admm_over_relax: float = 1.6,
+                 admm_rho: str = "adaptive"):
+        self.mean_spec = mean_spec
+        self.kernel_spec = kernel_spec
+        self.likelihood_spec = likelihood_spec
+        self.gpr_type = gpr_type
+        self._state = state
+        self.constrained = "A_c" in state
+        self.admm_iters = int(admm_iters)
+        self.admm_over_relax = float(admm_over_relax)
+        self.admm_rho = _check_rho(admm_rho)
+        self.d = int(state["P_cnt"].shape[0])
+        self.r = int(state["Sigma_r"].shape[0])
+        self.n = int(state["Ur"].shape[0])
+
+    @classmethod
+    def from_gpr(cls, gpr, limits=None, bc=None, constraints=None,
+                 admm_iters: int = 300,
+                 admm_over_relax: float = 1.6,
+                 admm_rho: str = "adaptive") -> "GPRSensor":
+        """Package a trained GPR (after ``fit`` + ``train``) on the model's
+        device, in the basis's dtype: the GP parameters and training set
+        are cast to it (a host-engine model's float64 state included).
+
+        ``limits``/``bc``/``constraints`` follow ``GPR.predict`` (they
+        compose, MultiTask only), with two serving rules: ``bc=(rows,
+        values)`` takes a fixed (n_bc,) vector enforced on every request,
+        and ``constraints`` bounds must be unbatched."""
+        if not hasattr(gpr, "Ur"):
+            raise AttributeError(
+                "GPRSensor.from_gpr needs a fitted and trained GPR: "
+                "call gpr.fit() and gpr.train() first.")
+        if not hasattr(gpr, "models"):
+            raise AttributeError(
+                "GPRSensor.from_gpr needs a trained GPR: call gpr.train() "
+                "after fit().")
+        dev, dtype = gpr.Ur.device, gpr.Ur.dtype
+
+        def t(x):
+            return as_tensor(x, dev, dtype=dtype)
+
+        def t_float(x):
+            x = as_tensor(x, dev)
+            return x.to(dtype) if x.is_floating_point() else x
+
+        state = {
+            "P0_train": t(gpr._train_X),
+            "Y": t(gpr._train_Y),
+            "params": tree_map(t_float, gpr.params),
+            "Sigma_r": t(gpr.Sigma_r),
+            "Ur": gpr.Ur,
+            "X_cnt": t(gpr.X_cnt)[:, 0],
+            "X_scl": t(gpr.X_scl)[:, 0],
+            "P_cnt": t(gpr.P_cnt)[0],
+            "P_scl": t(gpr.P_scl)[0],
+        }
+        if limits is not None or bc is not None or constraints is not None:
+            if gpr.gpr_type != "MultiTask":
+                raise NotImplementedError(
+                    "Constrained prediction only works for MultiTask "
+                    "models.")
+            if bc is not None and np.asarray(bc[1]).ndim != 1:
+                raise ValueError(
+                    "serving bc values must be a fixed (n_bc,) vector "
+                    "(per-request batched pins cannot be baked into a "
+                    "packaged model).")
+            parts = gpr._state_constraint_parts(limits, bc)
+            if constraints is not None:
+                cs_user, _ = _boxls.build_constraint_set(constraints, None)
+                parts.append(cs_user)
+            cs = _boxls.concat_constraints(parts)
+            if cs.batched:
+                raise ValueError(
+                    "per-request batched constraint bounds cannot be baked "
+                    "into a serving model; use unbatched bounds.")
+            A_c = t(cs.A)
+            state.update(A_c=A_c, lo=t(cs.lo), hi=t(cs.hi), AtA=A_c.T @ A_c)
+        return cls(gpr.mean, gpr.kernel, gpr.likelihood, gpr.gpr_type,
+                   state, admm_iters=admm_iters,
+                   admm_over_relax=admm_over_relax, admm_rho=admm_rho)
+
+    @classmethod
+    def load(cls, *args, **kwargs):
+        raise NotImplementedError(
+            f"GPRSensor.load (.npz checkpoints) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def shard(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"GPRSensor.shard (multi-card serving) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def __call__(self, P_star):
+        Ur = self._state["Ur"]
+        P_star = as_tensor(P_star, Ur.device, dtype=Ur.dtype)
+        if P_star.ndim < 2:
+            P_star = P_star[None, :]
+        if P_star.shape[1] != self.d:
+            raise ValueError(
+                f"P_star must be (batch, d={self.d}); got "
+                f"{tuple(P_star.shape)}.")
+        return _gpr_predict_math(
+            self._state, P_star, self.mean_spec, self.kernel_spec,
+            self.likelihood_spec, self.gpr_type, self.constrained,
+            self.admm_iters, self.admm_over_relax,
+            self.admm_rho == "adaptive")
+
+    def warmup(self, batch: int = 1) -> "GPRSensor":
+        Ur = self._state["Ur"]
+        self(torch.zeros((batch, self.d), dtype=Ur.dtype, device=Ur.device))
+        if Ur.device.type == "cuda":
+            torch.cuda.synchronize(Ur.device)
+        return self

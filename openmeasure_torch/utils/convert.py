@@ -21,11 +21,13 @@ from ..core.host64 import tree_f64
 from ..gp import kernels as K
 from ..gp.exact_gp import tree_map
 from ..gp.gpr import GPR
+from ..linalg.boxls import LinearConstraints
 from ..sensing.spr import SPR
 
 ARRAY_KEYS = ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r", "xyz", "Theta",
               "C")
-META_KEYS = ("r", "n_features", "n_points", "scale_type", "method")
+META_KEYS = ("r", "n_features", "n_points", "scale_type", "method", "solver",
+             "admm_max_iter", "admm_tol", "admm_over_relax")
 
 
 def spr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
@@ -36,8 +38,10 @@ def spr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
     ``Sigma_r`` are derived from ``Ar`` when absent, as ``fit`` does.  With
     ``C`` the model is trained on it (``Theta = C @ Ur``), and a given
     ``Theta`` then replaces the recomputed one.  ``meta`` carries
-    ``n_features`` and optionally ``r``, ``n_points``, ``scale_type`` and
-    ``method``.  The snapshot matrix is not carried: the model's ``X`` is a
+    ``n_features`` and optionally the other :data:`META_KEYS`; a COLS
+    model (``method='COLS'``) trains with its ``limits/lo``/``limits/hi``
+    and ``constraints/A``/``lo``/``hi`` arrays (the checkpoint's keys) and
+    its ADMM knobs.  The snapshot matrix is not carried: the model's ``X`` is a
     zero-memory placeholder with the right row count."""
     missing = [k for k in ("X_cnt", "X_scl", "Ur", "Ar") if k not in state]
     if missing:
@@ -60,7 +64,18 @@ def spr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
     spr.r = int(meta.get("r", spr.Ar.shape[1]))
     spr.scale_type = meta.get("scale_type", "std")
     if state.get("C") is not None:
-        spr.train(state["C"], method=meta.get("method", "OLS"))
+        limits = constraints = None
+        if "limits/lo" in state:
+            limits = [state["limits/lo"], state["limits/hi"]]
+        if "constraints/A" in state:
+            constraints = LinearConstraints(
+                *(state[f"constraints/{k}"] for k in ("A", "lo", "hi")))
+        spr.train(state["C"], method=meta.get("method", "OLS"),
+                  limits=limits, constraints=constraints,
+                  solver=meta.get("solver", "ADMM"),
+                  admm_max_iter=meta.get("admm_max_iter", 4000),
+                  admm_tol=meta.get("admm_tol", 1e-9),
+                  admm_over_relax=meta.get("admm_over_relax", 1.6))
         if state.get("Theta") is not None:
             spr.Theta = as_tensor(state["Theta"], spr.device)
     return spr

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout::
 
-    python3 profile_torch.py [qrcp] [chol] [spr] [gp]
+    python3 profile_torch.py [qrcp] [chol] [spr] [gp] [serving]
 
 With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
 per call against k on random panels of the main path's shapes and layout
@@ -36,7 +36,15 @@ and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
   iterations): its NRMSE in float64 and fp32 on the card, and a
   ``torch.profiler`` trace of one warmed fp32 call — device busy share,
   device time by kernel, the share of ``csrc/chol.cu``, and the
-  device-to-host reads per call and per Adam iteration.
+  device-to-host reads per call and per Adam iteration;
+* ``serving``: the flagship SPR trained with ``method='COLS'`` under the
+  per-feature limits of ``chip_smoke.py`` phase 9, packaged by
+  ``SoftSensor.from_spr`` (300 ADMM iterations), and one traced
+  ``predict_batch`` of 50 frames for each ρ mode: device busy share, device
+  time by kernel name and by kind (GEMM, factorizations and triangular
+  solves, reductions, elementwise passes), launches per batch and per ADMM
+  iteration, device-to-host copies, and the median device time of one GEMM
+  launch (``utils/timing.device_ms``).
 
 It needs a card and stops without one.  Every number it prints was
 measured on the card named on its first line.
@@ -78,8 +86,9 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    sections = set(sys.argv[1:]) or {"qrcp", "chol", "spr", "gp"}
-    unknown = sections - {"qrcp", "chol", "spr", "gp"}
+    known = {"qrcp", "chol", "spr", "gp", "serving"}
+    sections = set(sys.argv[1:]) or known
+    unknown = sections - known
     if unknown:
         print(f"profile_torch: unknown section(s) {sorted(unknown)}",
               file=sys.stderr)
@@ -287,6 +296,59 @@ def main() -> int:
               f"{launches} device events, {launches / iters:.1f} per "
               f"iteration; window per iteration {window / 1e3 / iters:.4f} "
               f"ms", flush=True)
+    if "serving" in sections:
+        from openmeasure_torch import SoftSensor
+        d = make_flame_dataset(dtype=np.float32)
+        npts = d["xyz"].shape[0]
+        Xb = d["X_train"].astype(np.float64).reshape(N_FEATURES, npts, -1)
+        f_lo, f_hi = Xb.min(axis=(1, 2)), Xb.max(axis=(1, 2))
+        pad = 0.05 * (f_hi - f_lo)
+        spr = SPR(d["X_train"], N_FEATURES, d["xyz"])
+        spr.fit(select_modes="number", n_modes=R)
+        C = spr.optimal_placement()
+        spr.train(C, method="COLS", limits=[f_lo - pad, f_hi + pad])
+        rows = C.argmax(dim=1).cpu().numpy()
+        Y = torch.as_tensor(np.tile(d["X_test"][rows].T, (13, 1))[:50],
+                            device=dev)
+        kinds = (("GEMM", ("gemm", "gemv", "cutlass", "xmma")),
+                 ("factorizations and triangular solves",
+                  ("potrf", "potrs", "trsm", "trsv", "geqrf", "orgqr",
+                   "ormqr", "larf", "chol", "magma", "getrf")),
+                 ("copies", ("memcpy", "memset")),
+                 ("reductions", ("reduce",)),
+                 ("elementwise", ("elementwise", "vectorized", "unrolled",
+                                  "where", "clamp")))
+        print("serving, flagship COLS SoftSensor: one traced predict_batch "
+              "of 50 frames, 300 ADMM iterations", flush=True)
+        for mode in ("adaptive", "fixed"):
+            sensor = SoftSensor.from_spr(spr, admm_rho=mode).warmup()
+            print(f"  admm_rho={mode!r}:", flush=True)
+            by_name, window = breakdown(lambda: sensor.predict_batch(Y),
+                                        top=15)
+            total = sum(v[0] for v in by_name.values())
+            launches = sum(v[1] for k, v in by_name.items()
+                           if "memcpy" not in k.lower()
+                           and "memset" not in k.lower())
+            dtoh = sum(v[1] for k, v in by_name.items() if "DtoH" in k)
+            sums = defaultdict(lambda: [0.0, 0])
+            for name, (us, cnt) in by_name.items():
+                low = name.lower()
+                kind = next((kd for kd, keys in kinds
+                             if any(k in low for k in keys)), "other")
+                sums[kind][0] += us
+                sums[kind][1] += cnt
+            print("    by kind: " + "; ".join(
+                f"{kd} {us / 1e3:.4f} ms ({100 * us / max(total, 1e-9):.1f} "
+                f"%, {cnt} launches)" for kd, (us, cnt) in
+                sorted(sums.items(), key=lambda kv: -kv[1][0])), flush=True)
+            gemm_ms, gemm_n = device_ms(lambda: sensor.predict_batch(Y),
+                                        "gemm", 2)
+            print(f"    {launches} kernel launches per batch "
+                  f"({launches / 300:.1f} per ADMM iteration); "
+                  f"device-to-host copies {dtoh}; window per frame "
+                  f"{window / 1e3 / 50:.5f} ms; one GEMM launch "
+                  f"{gemm_ms:.5f} ms device time (median of {gemm_n})",
+                  flush=True)
     print(smi, flush=True)
     return 0
 

@@ -202,10 +202,11 @@ def test_errors_and_unported_parts(flame):
     with pytest.raises(ValueError, match="engine"):
         tg.train(engine="tpu")
     tg.train(max_iter=5)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # constrained prediction is MultiTask only, as in the JAX package
+    with pytest.raises(NotImplementedError, match="MultiTask"):
         tg.predict(flame["P_test"], limits=[0.0, 1.0])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tg.predict(flame["P_test"], problem_dict={"bc": ([0], [1.0])})
+    with pytest.raises(NotImplementedError, match="MultiTask"):
+        tg.predict(flame["P_test"], problem_dict={"bc": ([0], np.ones((1, 3)))})
     with pytest.raises(NotImplementedError, match="item 9"):
         tg.update(flame["P_test"], np.zeros((3, R)))
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -32,6 +32,7 @@ def test_import_without_jax_in_a_fresh_process():
         "import openmeasure_torch.linalg.chol, openmeasure_torch.linalg.chol_cuda\n"
         "import openmeasure_torch.gp.kernels, openmeasure_torch.gp.exact_gp\n"
         "import openmeasure_torch.gp.gpr, openmeasure_torch.core.host64\n"
+        "import openmeasure_torch.linalg.boxls, openmeasure_torch.serving\n"
         "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
         "       or m.startswith(('jax.', 'openmeasure_tpu.'))]\n"
         "assert sys.modules['jax'] is None and not bad, bad\n"
@@ -66,3 +67,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         gpr_end_to_end(X, P, P[:2], X[:, :2], n_features=2, r=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPR(X, 2, np.zeros((20, 3)), P)
+    from openmeasure_torch import SoftSensor
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SoftSensor(X[:, :3], X[:3, :3], np.zeros(3), np.ones(3),
+                   np.zeros(40), np.ones(40))

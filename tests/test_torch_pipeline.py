@@ -178,17 +178,15 @@ def test_unported_methods_raise_with_roadmap_item(flame, fitted_pair):
     _, ts, _, Ct = fitted_pair
     with pytest.raises(NotImplementedError, match="item 11"):
         ts.optimal_placement("gem")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ts.train(Ct, method="COLS", limits=[0, 1])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ts.optimal_placement("dg")
     with pytest.raises(NotImplementedError, match="item 14"):
         ts.update_basis(flame["X_test"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ts.CPOD(limits=[0, 1])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ts.adaptive_sampling(flame["P_train"])
     import openmeasure_torch
     with pytest.raises(AttributeError, match="A.10"):
         openmeasure_torch.CoKriging
+    with pytest.raises(AttributeError, match="A.13"):
+        openmeasure_torch.DynamicSensor
 
 
 def test_class_flow_operator_forms_match_jax(flame):
