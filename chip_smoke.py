@@ -18,6 +18,13 @@ paths through their user entry points:
   Adam iterations), the class API ``GPR.fit → train → predict →
   reconstruct`` for SingleTask and MultiTask, and one ``engine='host'``
   run held against the port's float64 CPU result;
+* multifidelity — ``mfk_end_to_end`` at the JAX benchmark's co-kriging
+  size (K = 8 outputs, 40 LF and 15 HF sites, d = 2), fp32 against float64
+  on the card; ``CoKriging`` at flagship width (the flagship's first 15
+  snapshots as HF, a low-fidelity set of every 4th cell at all 41
+  conditions, 8 modes a side) against float64 and the truth, and its
+  ``CoKrigingSensor``; ``PIGPR`` at flagship width against a plain
+  MultiTask GPR; ``GPR.update`` with and without a fixed-noise retrain;
 * serving — the flagship SPR trained with ``method='COLS'`` under
   per-feature limits and packaged by ``SoftSensor.from_spr`` (300 ADMM
   iterations, adaptive and fixed ρ, batches of 50 frames), held against a
@@ -32,7 +39,10 @@ entry, and k > n, included), and ``qrcp_pivots_auto`` must launch it and
 return the plain sweep's pivots for k > n and for views the kernel cannot
 read through their strides; the chol kernel is held bit-equal to
 ``chol_inv_logdet_plain``, and on the main path's matrices against a
-float64 Cholesky within a bar scaled by their condition number.
+float64 Cholesky within a bar scaled by their condition number; on the
+co-kriging θ search's correlation matrices (screening and Newton batches,
+some of which do not factor in fp32) it must equal the plain version where
+finite, with NaN in the same places.
 It checks each reconstruction's NRMSE, shows by the launch counters that
 each entry point ran through its kernel, and times the pipelines, the
 serving batches and the QRCP kernel with CUDA events and the chol kernel
@@ -123,6 +133,82 @@ GP_SERVE_REL = 1e-5
 # diag(sqrt(var)²)), which 300 non-expansive iterations carry at most
 # ~300 · u ≈ 2e-5
 GP_SERVE_MAP_REL = 1e-4
+
+
+# co-kriging (phases 12-15).  fp32 mfk_end_to_end against float64 on the
+# card, NRMSE relative to the range of the float64 means: the JAX
+# package's fp32 run sits 2.9e-4 from float64 on the CPU and 3.0e-4 on its
+# accelerator (BASELINE.md:36,42)
+MFK_FP32_NRMSE = 1e-3
+# configuration B: modes a side; fp32 CoKriging against float64 (engine
+# 'host', float64 alignment) in NRMSE relative to the HF test range, the
+# same reason; the reconstruction against the truth below the JAX
+# package's own bar (docs/cokriging.md); CoKrigingSensor against
+# CoKriging.predict: the same fp32 operations on the same state
+CK_MODES = 8
+CK_FP32_NRMSE = 1e-3
+CK_TRUTH_NRMSE = 0.10
+CK_SENSOR_REL = 1e-5
+# configuration C: the temperature block's physical band (K), the
+# docs/examples/pigpr_example.py recipe
+T_LO, T_HI = 200.0, 3000.0
+
+
+def chol_ops(B: int, p: int) -> int:
+    """The batched SPD inverse's operations, counted on its triangles:
+    Schur updates (one multiply and one subtract per trailing
+    lower-triangle element), forward substitution (per row below the step,
+    per column up to it), the Gram's lower triangle, and one rsqrt and one
+    log per pivot."""
+    return (sum((p - 1 - j) * (p - j) for j in range(p))
+            + sum(2 * (p - 1 - j) * (j + 1) for j in range(p))
+            + sum(2 * (p - k) * (k + 1) for k in range(p)) + 2 * p) * B
+
+
+def chol_bound_ms(B: int, p: int):
+    """(bytes, operations) lower bounds in ms of a (B, p, p) launch: K read
+    and K⁻¹ and logdet written once at the HBM rate; the operations at the
+    fp32 peak."""
+    return ((2 * B * p * p + B) * 4 / HBM_BYTES_PER_S * 1e3,
+            chol_ops(B, p) / FP32_FLOPS * 1e3)
+
+
+def mfk_problem(K=8, n_lf=40, n_hf=15, n_test=25, d=2, seed=3):
+    """Configuration A, the JAX benchmark's co-kriging row
+    (``bench.py:138-153``): K outputs on shared two-fidelity sites,
+    float64 numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    X_lf = rng.random((n_lf, d))
+    X_hf = X_lf[::max(1, n_lf // n_hf)][:n_hf]
+    X_test = rng.random((n_test, d))
+
+    def hf(X, k):
+        return np.sin(3 * X[:, 0] + 0.7 * k) + 0.5 * np.cos(2 * X[:, 1] + k)
+
+    Y_hf = np.stack([hf(X_hf, k) for k in range(K)])
+    Y_lf = np.stack([0.6 * hf(X_lf, k) - 0.3 + 0.2 * X_lf[:, 0]
+                     for k in range(K)])
+    return X_lf, Y_lf, X_hf, Y_hf, X_test
+
+
+def cokriging_lf_set(d):
+    """Configuration B's low-fidelity set from a flame dataset ``d``: every
+    4th cell of each feature block at all training conditions, each value
+    ``X · (1 + 0.1 sin(2π x / 0.35)) + 0.05 · span_f`` (x the cell's x
+    coordinate, span_f feature f's span over X_train).  Returns (LF, xyz_lf)
+    in the dataset's dtype."""
+    import numpy as np
+    X, xyz = d["X_train"], d["xyz"]
+    npts, nf = xyz.shape[0], X.shape[0] // xyz.shape[0]
+    cells = np.arange(0, npts, 4)
+    rows = (np.arange(nf)[:, None] * npts + cells[None, :]).reshape(-1)
+    Xb = X.reshape(nf, npts, -1)
+    span = Xb.max(axis=(1, 2)) - Xb.min(axis=(1, 2))
+    mod = 1.0 + 0.1 * np.sin(2 * np.pi * xyz[cells, 0] / 0.35)
+    lf = X[rows] * np.tile(mod, nf)[:, None] \
+        + 0.05 * np.repeat(span, cells.size)[:, None]
+    return lf.astype(X.dtype), xyz[cells]
 
 
 def log(msg: str) -> None:
@@ -742,23 +828,16 @@ def main() -> int:
     chol_plain_ms = loop_ms(lambda: chol_plain.chol_inv_logdet_plain(Kmain),
                             n=5, warmup=1)
     cusolver_ms = loop_ms(cusolver_composition, n=200)
-    chol_bytes_ms = (2 * Bm * pm * pm + Bm) * 4 / HBM_BYTES_PER_S * 1e3
-    # the algorithm's operations, counted on its triangles: Schur updates
-    # (one multiply and one subtract per trailing lower-triangle element),
-    # forward substitution (per row below the step, per column up to it),
-    # the Gram's lower triangle, and one rsqrt and one log per pivot
-    ops = (sum((pm - 1 - j) * (pm - j) for j in range(pm))
-           + sum(2 * (pm - 1 - j) * (j + 1) for j in range(pm))
-           + sum(2 * (pm - k) * (k + 1) for k in range(pm)) + 2 * pm) * Bm
-    chol_ops_ms = ops / FP32_FLOPS * 1e3
-    chol_bound_ms = max(chol_bytes_ms, chol_ops_ms)
+    chol_bytes_ms, chol_ops_ms = chol_bound_ms(Bm, pm)
+    ops = chol_ops(Bm, pm)
+    chol_bound = max(chol_bytes_ms, chol_ops_ms)
     log(f"  yardstick, not a port: cuSOLVER composition (cholesky_ex + "
         f"cholesky_inverse + log-diag, three calls) {cusolver_ms:.5f} ms")
     log(f"  chol {tuple(Kmain.shape)}: kernel {chol_ms:.5f} ms per launch "
         f"(device time, median of {chol_n} launches by torch.profiler; "
         f"{chol_call_ms:.5f} ms per wrapper call with the host's part, CUDA "
         f"events over 200 back-to-back calls), plain {chol_plain_ms:.4f} ms, "
-        f"bound {chol_bound_ms:.6f} ms (bytes {chol_bytes_ms:.6f}, ops "
+        f"bound {chol_bound:.6f} ms (bytes {chol_bytes_ms:.6f}, ops "
         f"{chol_ops_ms:.6f}: {ops} operations)")
     records.append({
         "name": "chol_inv_logdet_cuda", "route": "cuda",
@@ -767,7 +846,7 @@ def main() -> int:
         "launches": sum(v[2] for v in gp_runs.values()),
         "max_abs_err": max(dk, dl), "ms": chol_ms,
         "plain_ms": chol_plain_ms,
-        "bound_ms": chol_bound_ms,
+        "bound_ms": chol_bound,
         "bound_by": "bytes" if chol_bytes_ms >= chol_ops_ms else "operations",
         "library_ms": None})
 
@@ -1014,6 +1093,331 @@ def main() -> int:
     if not viol_rel <= SERVE_VIOL_REL:
         fail(f"CPOD reconstruction violates the limits by {viol_rel:.3e}")
     log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- multifidelity: the co-kriging θ search on csrc/chol.cu ---------
+    from openmeasure_torch import CoKriging, CoKrigingSensor, PIGPR
+    from openmeasure_torch.multifi import mfk as mfk_mod
+    from openmeasure_torch.pipelines import mfk_end_to_end
+
+    mfk_a = mfk_problem()
+    mfk_a32 = [a.astype(np.float32) for a in mfk_a]
+    lf_b32 = cokriging_lf_set(flag)
+
+    def cokriging_b(d, lf, engine):
+        """Configuration B: ``CoKriging`` on the flagship HF snapshots
+        (15 linked) and the LF set (41 conditions); returns the model and
+        the walls (ms) of alignment and fit."""
+        P = d["P_train"]
+        ck = CoKriging(P[:15], P[15:], lf[0][:, :15], lf[0][:, 15:],
+                       d["X_train"][:, :15], lf[1], d["xyz"], 9)
+        ck.engine = engine
+        walls = []
+        for step in (lambda: ck.manifold_alignment(
+                select_modes="number", n_modes_hf=CK_MODES,
+                n_modes_lf=CK_MODES), ck.fit):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            b.synchronize()
+            walls.append(a.elapsed_time(b))
+        return ck, walls
+
+    def captured(fn):
+        """``fn()`` with every batch the dispatch hands ``csrc/chol.cu``
+        recorded, in order (the wrapper itself still launches)."""
+        seen = []
+        real = chol_plain.chol_inv_logdet_cuda
+
+        def record(K):
+            seen.append(K.detach().clone())
+            return real(K)
+
+        chol_plain.chol_inv_logdet_cuda = record
+        try:
+            out = fn()
+            sync()
+        finally:
+            chol_plain.chol_inv_logdet_cuda = real
+        return out, seen
+
+    log("phase 12: csrc/chol.cu vs chol_inv_logdet_plain on the co-kriging "
+        "θ search's correlation matrices (configurations A and B, fp32): "
+        "equal where finite, NaN in the same places")
+    t_phase = time.perf_counter()
+    _, seen_a = captured(lambda: mfk_end_to_end(*mfk_a32))
+    _, seen_b = captured(lambda: cokriging_b(flag, lf_b32, "device"))
+    ck_batches = {}
+    for tag, seen in (("A", seen_a), ("B", seen_b)):
+        for K in seen:
+            key = (tag, K.shape[0], K.shape[-1])
+            if key not in ck_batches:       # first screening / Newton batch
+                ck_batches[key] = K
+    ck_err = 0.0
+    for (tag, B, n), K in sorted(ck_batches.items()):
+        kk, lk = chol_kern.chol_inv_logdet_cuda(K)
+        kp, lp = chol_plain.chol_inv_logdet_plain(K)
+        sync()
+        same_nan = bool(torch.equal(torch.isnan(kk), torch.isnan(kp))) and \
+            bool(torch.equal(torch.isnan(lk), torch.isnan(lp)))
+        fin_k, fin_l = ~torch.isnan(kk), ~torch.isnan(lk)
+        equal = same_nan and bool(torch.equal(kk[fin_k], kp[fin_k])) and \
+            bool(torch.equal(lk[fin_l], lp[fin_l]))
+        if same_nan:
+            ck_err = max(ck_err, float((kk[fin_k] - kp[fin_k]).abs().max())
+                         if bool(fin_k.any()) else 0.0)
+        bad = int((~torch.isfinite(lk) | ~torch.isfinite(kk).all(-1).all(-1)
+                   ).sum())
+        log(f"  {tag} {'screening' if B == 8 * 32 else 'Newton'} batch"
+            f" ({B}, {n}, {n}): equal where finite={equal}, NaN masks "
+            f"equal={same_nan}; non-finite matrices {bad} of {B}")
+        if not equal:
+            fail(f"chol kernel differs from its plain version on the "
+                 f"co-kriging batch {tag} ({B}, {n}, {n})")
+    if not any(k[1] == 8 * 32 for k in ck_batches) or \
+            not any(k[1] == 8 * 5 for k in ck_batches):
+        fail(f"phase 12 captured no screening or Newton batch: "
+             f"{sorted(ck_batches)}")
+    # the kernel at the search's shapes: device time, plain, bound
+    ck_times = {}
+    for (tag, B, n), K in sorted(ck_batches.items()):
+        if tag != "A":
+            continue
+        dev_ms_, n_seen = device_ms(
+            lambda K=K: chol_kern.chol_inv_logdet_cuda(K), "chol_inv_logdet",
+            100)
+        plain_ms_ = loop_ms(lambda K=K: chol_plain.chol_inv_logdet_plain(K),
+                            n=3, warmup=1)
+        b_ms, o_ms = chol_bound_ms(B, n)
+        ck_times[(B, n)] = (dev_ms_, plain_ms_, b_ms, o_ms)
+        log(f"  chol at ({B}, {n}, {n}): {dev_ms_:.5f} ms device time a "
+            f"launch (median of {n_seen}), plain {plain_ms_:.4f} ms, bound "
+            f"{max(b_ms, o_ms):.6f} ms (bytes {b_ms:.6f}, ops {o_ms:.6f})")
+    log(f"  phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"phase 13: mfk_end_to_end, configuration A (K = 8 outputs, 40 LF "
+        f"and 15 HF sites, 25 test points, d = 2, seed 3): fp32 against "
+        f"float64 on the card (NRMSE ≤ {MFK_FP32_NRMSE} of the float64 "
+        "means' range)")
+    t_phase = time.perf_counter()
+    n_evals = [0]
+    real_inv = mfk_mod._level_nll_inv
+
+    def eval_counted(*a):
+        n_evals[0] += 1
+        return real_inv(*a)
+
+    mfk_mod._level_nll_inv = eval_counted
+    try:
+        r32, n_mfk = chol_counted(lambda: mfk_end_to_end(*mfk_a32))
+    finally:
+        mfk_mod._level_nll_inv = real_inv
+    r64 = mfk_end_to_end(*mfk_a)
+    sync()
+    m64 = r64.mean
+    mfk_nrmse = float(torch.sqrt(torch.mean((r32.mean.double() - m64) ** 2))
+                      / (m64.max() - m64.min()))
+    a32 = [torch.as_tensor(a, device=dev) for a in mfk_a32]
+    walls = []
+    for _ in range(6):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = mfk_end_to_end(*a32)
+        b.record()
+        b.synchronize()
+        walls.append(a.elapsed_time(b))
+    walls = walls[1:]
+    steps = r32.newton_steps.tolist()
+    # the search reads one "all lanes done" flag every CHECK_EVERY steps
+    # of each level, and nothing else
+    flag_reads = sum(-(-s // mfk_mod.CHECK_EVERY) for s in steps)
+    _, mfk_dtoh = trace_counts(lambda: mfk_end_to_end(*a32))
+    n_sync = host_syncs(lambda: mfk_end_to_end(*a32))
+    log(f"  one call: device-to-host copies {mfk_dtoh} (the stop flags: "
+        f"{flag_reads}), synchronizing calls {n_sync} (uploads of the "
+        "starts and the screening cloud included)")
+    if mfk_dtoh > flag_reads:
+        fail(f"mfk_end_to_end read back {mfk_dtoh} times, beyond its "
+             f"{flag_reads} stop flags")
+    log(f"  fp32 vs float64 NRMSE / range {mfk_nrmse:.4e} (≤ "
+        f"{MFK_FP32_NRMSE}); chol launches {n_mfk} for {n_evals[0]} NLL "
+        f"evaluations; Newton steps of the slowest lane per level "
+        f"{steps} (float64 {r64.newton_steps.tolist()}); wall per call "
+        f"median {statistics.median(walls):.4f} ms (min {min(walls):.4f}, "
+        f"max {max(walls):.4f}; 5 calls after one warm-up, CUDA events, "
+        f"inputs on the card) → {statistics.median(walls) / sum(steps):.4f} "
+        f"ms per Newton step")
+    if not (bool(torch.isfinite(r32.mean).all())
+            and bool(torch.isfinite(r32.mse).all())
+            and tuple(r32.mean.shape) == (8, 25)):
+        fail("fp32 mfk_end_to_end output is not finite of shape (8, 25)")
+    if not mfk_nrmse <= MFK_FP32_NRMSE:
+        fail(f"fp32 mfk_end_to_end {mfk_nrmse:.3e} from float64")
+    if n_evals[0] < 1 or n_mfk < n_evals[0]:
+        fail(f"mfk_end_to_end launched csrc/chol.cu {n_mfk} times for "
+             f"{n_evals[0]} NLL evaluations")
+    log(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+    log(f"phase 14: CoKriging at flagship width, configuration B (HF: the "
+        f"flagship's first 15 snapshots; LF: every 4th cell, 41 conditions, "
+        f"{lf_b32[0].shape}), {CK_MODES} modes a side; fp32 against float64 "
+        f"(engine='host', float64 alignment), the truth and the sensor")
+    t_phase = time.perf_counter()
+    (ck32, ck_walls), n_ck = chol_counted(
+        lambda: cokriging_b(flag, lf_b32, "device"))
+    flag64 = make_flame_dataset(dtype=np.float64)
+    ck64, _ = cokriging_b(flag64, cokriging_lf_set(flag64), "host")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    Y32, _ = ck32.predict(Ptf)
+    b.record()
+    b.synchronize()
+    pred_ms = a.elapsed_time(b)
+    Y64, _ = ck64.predict(flag64["P_test"])
+    T64 = torch.as_tensor(flag64["X_test"], device=dev)
+    rng64 = float(T64.max() - T64.min())
+    ck_gap = float(torch.sqrt(torch.mean((Y32.double() - Y64) ** 2))) / rng64
+    ck_gap_max = float((Y32.double() - Y64).abs().max()) / rng64
+    ck_truth = float(torch.sqrt(torch.mean((Y32.double() - T64) ** 2))) \
+        / rng64
+    ck_truth64 = float(torch.sqrt(torch.mean((Y64 - T64) ** 2))) / rng64
+    sensor = CoKrigingSensor.from_cokriging(ck32).warmup(
+        batch=Ptft.shape[0])
+    Ys, _ = sensor(Ptft)
+    sync()
+    ck_sensor = float((Ys - Y32).abs().max() / (Y32.max() - Y32.min()))
+    t_req = per_call_ms({0: lambda: sensor(Ptft)}, reps=20, warmup=2)[0]
+    log(f"  fp32: alignment {ck_walls[0]:.2f} ms, fit {ck_walls[1]:.2f} ms "
+        f"(chol launches {n_ck}), predict {pred_ms:.2f} ms (CUDA events, "
+        f"first calls); n_latent {ck32.n_latent}")
+    log(f"  fp32 vs float64: NRMSE / HF test range {ck_gap:.4e} (≤ "
+        f"{CK_FP32_NRMSE}), max {ck_gap_max:.4e}; reconstruction NRMSE vs "
+        f"the 4 HF test snapshots {ck_truth:.4e} fp32, {ck_truth64:.4e} "
+        f"float64 (< {CK_TRUTH_NRMSE}); CoKrigingSensor vs predict "
+        f"{ck_sensor:.4e} of the span (≤ {CK_SENSOR_REL}); one sensor "
+        f"request of {Ptft.shape[0]} points {t_req[0]:.4f} ms (min "
+        f"{t_req[1]:.4f}, max {t_req[2]:.4f})")
+    if not bool(torch.isfinite(Y32).all()) or \
+            tuple(Y32.shape) != flag["X_test"].shape:
+        fail("fp32 CoKriging prediction is not finite of the test shape")
+    if not ck_gap <= CK_FP32_NRMSE:
+        fail(f"fp32 CoKriging {ck_gap:.3e} from float64")
+    if not ck_truth < CK_TRUTH_NRMSE:
+        fail(f"CoKriging reconstruction NRMSE {ck_truth:.3e}")
+    if not ck_sensor <= CK_SENSOR_REL:
+        fail(f"CoKrigingSensor differs from CoKriging.predict: "
+             f"{ck_sensor:.3e}")
+    if n_ck < 1:
+        fail("the CoKriging fit never launched csrc/chol.cu")
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 15: PIGPR at flagship width (configuration C: r = 14, the 8 "
+        "corners and the centre of the P box, temperature block within "
+        f"[{T_LO:.0f}, {T_HI:.0f}] K, max_iter 1000) against a plain "
+        "MultiTask GPR; GPR.update on phase 6's SingleTask model "
+        "(configuration D)")
+    t_phase = time.perf_counter()
+    npts = flag["xyz"].shape[0]
+    lo_p, hi_p = Pf.min(axis=0), Pf.max(axis=0)
+    P_cstr = np.vstack([np.stack(np.meshgrid(*zip(lo_p, hi_p))).reshape(
+        3, -1).T, (lo_p + hi_p) / 2])
+
+    def t_violation(model):
+        A, _ = model.predict(P_cstr)
+        T = model.reconstruct(A)[:npts].double()
+        return float(torch.mean(torch.clamp(T - T_HI, min=0.0) ** 2
+                                + torch.clamp(T_LO - T, min=0.0) ** 2))
+
+    pig = PIGPR(flag["X_train"], 9, flag["xyz"], Pf, P_cstr, None)
+    pig.fit(select_modes="number", n_modes=14)
+    UrS = pig.Ur[:npts] * pig.Sigma_r[None, :]
+    Xc, Xs = pig.X_cnt[:npts], pig.X_scl[:npts]
+    n_tr = Pf.shape[0]
+
+    def added_loss(ctx):
+        V = ctx["output"].mean[n_tr:]
+        T = Xs * (UrS @ V.T) + Xc
+        return -ctx["loss_dict"]["coef"] * torch.mean(
+            torch.clamp(T - T_HI, min=0.0) ** 2
+            + torch.clamp(T_LO - T, min=0.0) ** 2)
+
+    pig.AddedLoss = added_loss
+    loss_mll, V0 = pig.compute_mll()
+    T0 = Xs * (UrS @ V0[n_tr:].T) + Xc
+    v0 = float(torch.mean(torch.clamp(T0 - T_HI, min=0.0) ** 2
+                          + torch.clamp(T_LO - T0, min=0.0) ** 2))
+    coef = abs(float(loss_mll)) / max(v0, 1.0)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    _, n_pig = chol_counted(lambda: pig.train(loss_dict={"coef": coef}))
+    b.record()
+    b.synchronize()
+    pig_ms = a.elapsed_time(b)
+    pig_its = int(pig._iterations[0])
+    pig_loss = float(pig._final_loss[0])
+    gm_plain = gp_models["MultiTask"]
+    v_pig, v_gpr = t_violation(pig), t_violation(gm_plain)
+    nr_pig = float(nrmse(pig.reconstruct(pig.predict(Ptf)[0]), Tf))
+    nr_gpr = float(nrmse(gm_plain.reconstruct(gm_plain.predict(Ptf)[0]), Tf))
+    log(f"  PIGPR: initial MLL {float(loss_mll):.4f}, initial violation "
+        f"{v0:.4f} K² → coefficient {coef:.4e}; final loss {pig_loss:.6f}; "
+        f"Adam iterations {pig_its}, {pig_ms:.2f} ms ({pig_ms / pig_its:.4f} "
+        f"ms per iteration, CUDA events, first call); chol launches "
+        f"{n_pig} ({n_pig / pig_its:.2f} per iteration)")
+    log(f"  mean squared temperature violation at the constraint points: "
+        f"PIGPR {v_pig:.6e} K², plain MultiTask GPR {v_gpr:.6e} K²; test "
+        f"NRMSE PIGPR {nr_pig:.6e}, plain {nr_gpr:.6e}")
+    if not np.isfinite(pig_loss):
+        fail("PIGPR's final loss is not finite")
+    if not v_pig <= v_gpr:
+        fail(f"PIGPR violates the bounds more than the plain GPR: "
+             f"{v_pig:.4e} > {v_gpr:.4e} K²")
+    if n_pig < pig_its:
+        fail(f"PIGPR launched csrc/chol.cu {n_pig} times in {pig_its} "
+             "iterations")
+
+    # the 4 test snapshots' projections on the basis, assimilated 2 by 2
+    gs = gp_single
+    A_new = (((Tf - gs.X_cnt) / gs.X_scl).T @ gs.Ur).double().cpu().numpy()
+    gs.update(Ptf[:2], A_new[:2])
+    A_sig = 0.05 * np.abs(A_new[2:]) + 1e-3
+    _, n_upd = chol_counted(lambda: gs.update(
+        Ptf[2:], A_new[2:], A_sig, retrain=True))
+    a_upd, s_upd = gs.predict(Ptf)
+    sync()
+    upd_nr = float(nrmse(gs.reconstruct(a_upd), Tf))
+    log(f"  GPR.update: 2 points assimilated without retraining, then 2 with "
+        f"retrain=True and A_sigma (fixed noise, "
+        f"{type(gs.likelihood).__name__}): training set "
+        f"{gs._train_X.shape[0]} points, Adam iterations "
+        f"{gs._iterations.tolist()}, chol launches of the retrain {n_upd}; "
+        f"predictions finite={bool(torch.isfinite(a_upd).all())}, NRMSE "
+        f"{upd_nr:.6e}")
+    if not (bool(torch.isfinite(a_upd).all())
+            and bool(torch.isfinite(s_upd).all())):
+        fail("predictions after GPR.update are not finite")
+    if n_upd < 1:
+        fail("the fixed-noise retrain never launched csrc/chol.cu")
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+    for r_ in records:
+        if r_["name"] == "chol_inv_logdet_cuda":
+            r_["launches"] += n_pig + n_upd
+            r_["max_abs_err"] = max(r_["max_abs_err"], ck_err)
+    nb = (8 * 5, mfk_a[0].shape[0])
+    dms, pms, bms, oms = ck_times[nb]
+    records.append({
+        "name": "chol_inv_logdet_cuda[cokriging]", "route": "cuda",
+        "source": "openmeasure_torch/csrc/chol.cu",
+        "replaces": "openmeasure_tpu/linalg/chol_pallas.py:85",
+        "launches": n_mfk + n_ck, "max_abs_err": ck_err, "ms": dms,
+        "plain_ms": pms, "bound_ms": max(bms, oms),
+        "bound_by": "bytes" if bms >= oms else "operations",
+        "library_ms": None})
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

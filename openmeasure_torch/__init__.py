@@ -6,15 +6,20 @@ sensor placement (a hand-written CUDA kernel, ``csrc/qrcp.cu``) and the
 gappy-POD reconstruction.  The GP ROM: per-mode Gaussian processes over
 the POD coefficients, trained by Adam on the closed-form marginal
 likelihood, with the batched SPD inverse and log-determinant in a
-hand-written CUDA kernel (``csrc/chol.cu``).  Serving packages either
-model for streaming inference on the card (``SoftSensor``, ``GPRSensor``),
-with the box-constrained ADMM solver (``linalg/boxls.py``) behind the
-constrained variants.  Module names, public
+hand-written CUDA kernel (``csrc/chol.cu``); ``PIGPR`` adds a
+physics-informed loss.  Multifidelity: ``CoKriging`` aligns two POD
+fidelities and fits recursive co-kriging models (``MultiFiCoKriging``)
+per latent dimension, their θ searches running the same kernel.  Serving
+packages a model for streaming inference on the card (``SoftSensor``,
+``GPRSensor``, ``CoKrigingSensor``), with the box-constrained ADMM solver
+(``linalg/boxls.py``) behind the constrained variants.  Module names, public
 function names and array layouts follow ``openmeasure_tpu`` so each piece
 has an obvious counterpart.
 
-    from openmeasure_torch import ROM, SPR, GPR, SoftSensor, GPRSensor
-    from openmeasure_torch.pipelines import spr_end_to_end, gpr_end_to_end
+    from openmeasure_torch import ROM, SPR, GPR, PIGPR, CoKriging
+    from openmeasure_torch import SoftSensor, GPRSensor, CoKrigingSensor
+    from openmeasure_torch.pipelines import (spr_end_to_end, gpr_end_to_end,
+                                             mfk_end_to_end)
 
 Every entry point takes ``device=None``, which means ``"cuda"``; with no
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run
@@ -33,18 +38,18 @@ _torch.set_float32_matmul_precision("highest")
 
 from .rom.rom import ROM  # noqa: E402
 from .sensing.spr import SPR  # noqa: E402
-from .gp.gpr import GPR  # noqa: E402
-from .serving import GPRSensor, SoftSensor  # noqa: E402
+from .gp.gpr import GPR, PIGPR  # noqa: E402
+from .multifi.cokriging import CoKriging  # noqa: E402
+from .multifi.mfk import MultiFiCoKriging  # noqa: E402
+from .serving import CoKrigingSensor, GPRSensor, SoftSensor  # noqa: E402
 
-__all__ = ["ROM", "SPR", "GPR", "SoftSensor", "GPRSensor"]
+__all__ = ["ROM", "SPR", "GPR", "PIGPR", "CoKriging", "MultiFiCoKriging",
+           "SoftSensor", "GPRSensor", "CoKrigingSensor"]
 __version__ = "0.1.0"
 
 # Names of the JAX package's top level that later slices of the port bring
 # over, each with the ROADMAP.md §A item that ports it.
 _NOT_YET_PORTED = {
-    "PIGPR": "A.9",
-    "CoKriging": "A.10", "MultiFiCoKriging": "A.10",
-    "CoKrigingSensor": "A.10",
     "ShallowDecoder": "A.11", "DecoderSensor": "A.11",
     "DMD": "A.13", "DynamicSensor": "A.13",
     "StreamingROM": "A.14", "StreamingSPR": "A.14", "StreamingGPR": "A.14",

@@ -14,8 +14,9 @@ result of a log-prob is ``(...)``.
 Which formulation runs is the JAX package's gate, keyed on the tensor: a
 CUDA fp32 batch with p ≤ 128 takes the explicit inverse (α = K⁻¹·resid,
 logdet from the kernel); a CPU tensor, float64 or p > 128 takes the
-Cholesky branch (``cholesky_ex`` + ``cholesky_solve``), as JAX does off the
-TPU.
+Cholesky branch (:func:`..linalg.chol.cholesky_nan` + ``cholesky_solve``),
+as JAX does off the TPU; a failed factorization gives NaN there, as it
+does in JAX.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from . import kernels as K
-from ..linalg.chol import chol_fits, chol_inv_logdet, kernel_path_wanted
+from ..linalg.chol import (chol_fits, chol_inv_logdet, cholesky_nan,
+                           kernel_path_wanted)
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -112,7 +114,7 @@ def _lp_alpha_kinv(Kn: torch.Tensor, resid: torch.Tensor, need_kinv: bool):
         alpha = (Kinv @ resid[..., :, None])[..., 0]
         lp = -0.5 * _dot(resid, alpha) - 0.5 * logdet - 0.5 * n * LOG_2PI
         return lp, alpha, Kinv
-    L, _ = torch.linalg.cholesky_ex(Kj)
+    L = cholesky_nan(Kj)
     alpha = torch.cholesky_solve(resid[..., :, None], L)[..., 0]
     lp = (-0.5 * _dot(resid, alpha)
           - torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
@@ -170,7 +172,7 @@ def gp_posterior(mean_spec, kernel_spec, params: Dict, noise: torch.Tensor,
         W = Ks @ Kinv
         var_s = torch.clamp(kss - torch.sum(W * Ks, dim=-1), min=0.0)
     else:
-        L, _ = torch.linalg.cholesky_ex(Kn + _jitter(Kn.dtype) * _eye(n, Kn))
+        L = cholesky_nan(Kn + _jitter(Kn.dtype) * _eye(n, Kn))
         alpha = torch.cholesky_solve((y - mu)[..., :, None], L)[..., 0]
         mean_s = mus + (Ks @ alpha[..., :, None])[..., 0]
         v = torch.linalg.solve_triangular(L, Ks.mT, upper=False)
@@ -458,15 +460,18 @@ class _ClosedFormCore:
 
 
 def make_multitask_value_and_grad(mean_spec, kernel_spec, likelihood_spec,
-                                  X: torch.Tensor, Y: torch.Tensor
+                                  X: torch.Tensor, Y: torch.Tensor,
+                                  added_loss_fn: Optional[Callable] = None
                                   ) -> Optional[Callable]:
     """Closed-form (loss, gradient) oracle for the multitask −MLL
     (:func:`make_multitask_loss`): per-task ``∂lp/∂θ`` from
     :class:`_ClosedFormCore` over the task axis, plus the shared global +
     per-task noise chain ``noise_t = softplus(raw) + 1e-4 +
-    softplus(raw_task_t)``.  Returns ``None`` for unsupported specs.  ``Y``
-    is (p, r).  (The JAX package's ``added_loss_fn`` argument, PIGPR's
-    added-loss term, comes with PIGPR: ROADMAP.md §A item 9.)"""
+    softplus(raw_task_t)``.  Returns ``None`` for unsupported specs or
+    when ``added_loss_fn`` is given (the PIGPR path differentiates through
+    an arbitrary user callback: autograd only).  ``Y`` is (p, r)."""
+    if added_loss_fn is not None:
+        return None
     if not isinstance(likelihood_spec, K.MultitaskGaussianLikelihood):
         return None
     core = _ClosedFormCore.build(mean_spec, kernel_spec, X)
@@ -493,12 +498,20 @@ def make_multitask_value_and_grad(mean_spec, kernel_spec, likelihood_spec,
 
 def make_multitask_loss(mean_spec, kernel_spec,
                         likelihood_spec: K.MultitaskGaussianLikelihood,
-                        X: torch.Tensor, Y: torch.Tensor) -> Callable:
+                        X: torch.Tensor, Y: torch.Tensor,
+                        added_loss_fn: Optional[Callable] = None
+                        ) -> Callable:
     """−MLL of a batch-independent multitask GP: per-task mean/kernel
     parameters (stacked), one multitask likelihood (global + task noises);
     the joint log-prob divided by p·r.  Returns a (1,)-shaped loss for the
-    shared trainer.  (PIGPR's ``added_loss_fn`` comes with PIGPR:
-    ROADMAP.md §A item 9.)"""
+    shared trainer.
+
+    ``added_loss_fn(params, lp) -> scalar`` is gpytorch's added-loss-term
+    hook, added to the log-prob before the normalization — the PIGPR path.
+    It also receives the joint log-prob ``lp`` this loss has just computed
+    (PIGPR hands it, detached, to its callback as ``loss_ml``), where the
+    JAX package's ``added_loss_fn(params)`` recomputes it and XLA merges
+    the two evaluations; eagerly that would be one more inverse a step."""
     p, r = X.shape[0], Y.shape[1]
     Yt = Y.T
 
@@ -506,6 +519,8 @@ def make_multitask_loss(mean_spec, kernel_spec,
         noises = likelihood_spec.noise(params["likelihood"])   # (r,)
         lp = torch.sum(gp_log_prob(mean_spec, kernel_spec, params["tasks"],
                                    noises, X, Yt))
+        if added_loss_fn is not None:
+            lp = lp + added_loss_fn(params, lp)
         return (-lp / (p * r))[None]
 
     return batched

@@ -26,16 +26,27 @@ the model's device in the basis's dtype (as the JAX package's runs on its
 device whatever the engine), and the result comes back to the host in
 float64 like every host-engine prediction.
 
-Not ported in this slice, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: ``update`` (A.9), ``update_basis`` (A.14).  ``PIGPR`` is
-A.9 too.  The JAX package's documented deviations from the reference
-(``Vr_sigma`` at the trained hyperparameters, SingleTask constrained
-predict raising) carry over.
+``update`` assimilates new (P, A) pairs into the training set (extending
+``Vr_sigma`` and an installed fixed-noise likelihood) and optionally
+retrains: MultiTask reruns Adam from the current hyperparameters,
+SingleTask swaps in a ``FixedNoiseGaussianLikelihood`` of the data
+variances.  :class:`PIGPR` trains with a physics-informed added loss,
+differentiated by autograd through the posterior at constraint points
+(on the card, through ``csrc/chol.cu``).  ``update_basis`` (incremental
+SVD) is not ported yet and raises ``NotImplementedError`` naming
+ROADMAP.md §A item 14.  The JAX package's documented deviations from the
+reference (``Vr_sigma`` at the trained hyperparameters, SingleTask
+constrained predict raising, ``update`` extending the MultiTask training
+set and ``Vr_sigma`` with the prior stddev) carry over.
+
+Documented deviation: ``PIGPR.train`` raises ``ValueError`` on a model
+whose ``engine`` is ``'host'``, where the JAX package's silently switches
+it to ``'device'``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -476,15 +487,218 @@ class GPR(ROM):
         return V_pred * sig[None, :], V_sigma * sig[None, :]
 
     # ------------------------------------------------------------------ #
-    # Later slices
+    # Update
     # ------------------------------------------------------------------ #
 
-    def update(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GPR.update (online assimilation and fixed-noise retraining) "
-            "is not ported yet (ROADMAP.md §A item 9).")
+    def _guard_pigpr_retrain(self, retrain):
+        """The standard retrain loop would silently drop PIGPR's added-loss
+        term: reject before any state changes."""
+        if retrain and isinstance(self, PIGPR):
+            raise ValueError(
+                "PIGPR cannot retrain with the standard loop (it would "
+                "drop the added-loss term); update with retrain=False "
+                "and call train() again.")
+
+    def update(self, P_new, A_new, A_sigma_new=None, retrain: bool = False,
+               verbose: bool = False):
+        """Assimilate new parameter points ``P_new`` (q, d) with their POD
+        coefficients ``A_new`` (q, r): the training set grows by them (in
+        both GP types — the JAX package's documented deviation), and
+        ``Vr_sigma`` by ``A_sigma_new`` / Σ_r, or by the prior stddev at
+        the new points when no uncertainties are given.  An installed
+        ``FixedNoiseGaussianLikelihood`` grows with it.
+
+        ``retrain=True``: MultiTask reruns Adam from the current
+        hyperparameters; SingleTask needs ``A_sigma_new`` and retrains with
+        a ``FixedNoiseGaussianLikelihood`` of the variances ``Vr_sigma²``
+        (the reference's recipe).  Under ``engine='host'`` the
+        bookkeeping and the retrain stay on the host in float64."""
+        self._guard_pigpr_retrain(retrain)
+        self.verbose = verbose
+        host = getattr(self, "engine", "device") == "host"
+        cnt, scl = self.P_cnt[0], self.P_scl[0]
+        P0_new = (as_tensor(P_new, self.device, dtype=cnt.dtype)
+                  - cnt[None, :]) / scl[None, :]
+        P0_tot = torch.cat([self._train_X, P0_new], dim=0)
+        Vr_new = as_tensor(A_new, self.device,
+                           dtype=self.Sigma_r.dtype) / self.Sigma_r[None, :]
+        Vr_tot = torch.cat([self._train_Y, Vr_new], dim=0)
+        # set_train_data(strict=False)
+        self._train_X = P0_tot
+        self._train_Y = Vr_tot
+
+        if A_sigma_new is not None:
+            Vr_sigma_new = as_tensor(A_sigma_new, self.device,
+                                     dtype=self.Sigma_r.dtype) \
+                / self.Sigma_r[None, :]
+        else:
+            # the prior stddev at the new points (what Vr_sigma holds for
+            # the original set), so a later fixed-noise retrain stays
+            # well-formed
+            task_params = (self.params["tasks"]
+                           if self.gpr_type == "MultiTask" else self.params)
+            Vr_sigma_new = self._prior_stddev_all(task_params, P0_new)
+        if host:
+            # host-float64 bookkeeping: no round trip through the device
+            Vr_sigma_tot = torch.cat([tree_f64(self.Vr_sigma),
+                                      tree_f64(Vr_sigma_new)], dim=0)
+        else:
+            Vr_sigma_tot = torch.cat([self.Vr_sigma, Vr_sigma_new], dim=0)
+        self.Vr_sigma = Vr_sigma_tot
+
+        # an installed fixed-noise likelihood must stay as long as the
+        # training set, or the next posterior solve fails to broadcast
+        if self.gpr_type != "MultiTask" and \
+                isinstance(self.likelihood, K.FixedNoiseGaussianLikelihood):
+            params = dict(self.params)
+            params["likelihood"] = {"fixed_noise": (Vr_sigma_tot ** 2).T}
+            self.params = params
+
+        if not retrain:
+            return
+
+        if self.gpr_type == "MultiTask":
+            self.params, res = self._multitask_adam(self.params, P0_tot,
+                                                    Vr_tot)
+            self.Vr_sigma = self._prior_stddev_all(self.params["tasks"],
+                                                   P0_tot)
+        else:
+            if A_sigma_new is None:
+                raise ValueError(
+                    "retrain=True for SingleTask requires A_sigma_new "
+                    "(fixed-noise retraining uses the data uncertainties).")
+            fixed = K.FixedNoiseGaussianLikelihood()
+            params0 = dict(self.params)
+            params0["likelihood"] = {
+                "fixed_noise": (Vr_sigma_tot ** 2).T}   # (r, p_tot)
+            res = self._single_task_adam(params0, fixed, P0_tot, Vr_tot)
+            self.params = res.params
+            self.likelihood = fixed
+            self.Vr_sigma = self._prior_stddev_all(self.params, P0_tot)
+        self._final_loss = res.loss
+        self._iterations = res.iterations
+        self._refresh_api_compat()
 
     def update_basis(self, *args, **kwargs):
         raise NotImplementedError(
             "GPR.update_basis (incremental SVD) is not ported yet "
             "(ROADMAP.md §A item 14).")
+
+
+class PIGPR(GPR):
+    """Physics-informed GPR (MultiTask only): ``PIGPR(X, n_features, xyz,
+    P, P_cstr, AddedLoss, device=None)``.
+
+    ``AddedLoss(ctx) -> scalar`` receives ``ctx = {'output':
+    MultitaskPosterior at [train + constraint points], 'loss_ml': detached
+    joint log-prob of the training data, 'verbose': ..., 'loss_dict':
+    ...}`` and returns a term added to the log-likelihood (so a penalty
+    comes back negative), differentiable in torch with respect to the
+    posterior — the gpytorch AddedLossTerm contract.  Training runs on the
+    model's device by autograd through the posterior; there is no
+    host-float64 engine."""
+
+    def __init__(self, X, n_features, xyz, P, P_cstr, AddedLoss: Callable,
+                 device: DeviceLike = None):
+        super().__init__(X, n_features, xyz, P, "MultiTask", device=device)
+        self.P_cstr = P_cstr
+        self.AddedLoss = AddedLoss
+
+    def _scaled_constraint_points(self):
+        cnt, scl = self.P_cnt[0], self.P_scl[0]
+        P0_cstr = (as_tensor(self.P_cstr, self.device, dtype=cnt.dtype)
+                   - cnt[None, :]) / scl[None, :]
+        return torch.cat([self.P0, P0_cstr], dim=0)
+
+    def _posterior_with(self, params, P0_eval) -> MultitaskPosterior:
+        """Noise-inclusive posterior at ``P0_eval`` under ``params`` —
+        differentiable (the added loss backpropagates through it)."""
+        noises = self.likelihood.noise(params["likelihood"])
+        means, variances = E.gp_posterior(
+            self.mean, self.kernel, params["tasks"], noises, self.P0,
+            self.Vr.T, P0_eval, include_noise=True)
+        return MultitaskPosterior(mean=means.T,
+                                  stddev=torch.sqrt(variances).T)
+
+    def train(self, mean=None, kernel=None, likelihood=None,
+              max_iter: int = 1000, rel_error: float = 1e-5, lr: float = 0.1,
+              verbose: bool = False, loss_dict=None):
+        """Adam on the multitask −MLL plus the added loss, by autograd.
+        Raises ``ValueError`` if the model's ``engine`` is ``'host'``:
+        the added loss is user code differentiated on the device, and the
+        JAX package's silent switch to ``'device'`` is not copied."""
+        if getattr(self, "engine", "device") == "host":
+            raise ValueError(
+                "PIGPR trains on the model's device only; its engine is "
+                "'host'. Set engine='device' to train (the added loss is "
+                "differentiated on the device).")
+        self.engine = "device"
+        self.max_iter = max_iter
+        self.rel_error = rel_error
+        self.lr = lr
+        self.verbose = verbose
+
+        mean, kernel, likelihood = self._default_specs(mean, kernel,
+                                                       likelihood)
+        self.mean, self.kernel, self.likelihood = mean, kernel, likelihood
+        P0, Vr = self.P0, self.Vr
+        self._train_X, self._train_Y = P0, Vr
+        P0_tot = self._scaled_constraint_points()
+        self.P0_tot = P0_tot
+
+        def added_loss_fn(params, lp):
+            return self.AddedLoss({
+                "output": self._posterior_with(params, P0_tot),
+                "loss_ml": lp.detach(), "verbose": verbose,
+                "loss_dict": loss_dict})
+
+        like = dict(dtype=P0.dtype, device=P0.device)
+        params0 = {
+            "tasks": _stack_params(
+                self._init_task_params(mean, kernel, likelihood, like),
+                self.r),
+            "likelihood": likelihood.init_params(**like),
+        }
+        loss_raw = E.make_multitask_loss(mean, kernel, likelihood, P0, Vr,
+                                         added_loss_fn=added_loss_fn)
+
+        def loss_fn(pb):
+            return loss_raw(E.tree_map(lambda x: x[0], pb))
+
+        res = E.adam_early_stop(loss_fn, E.tree_map(lambda x: x[None],
+                                                    params0),
+                                lr=lr, max_iter=max_iter,
+                                rel_error=rel_error)
+        self.params = E.tree_map(lambda x: x[0], res.params)
+        self._final_loss = res.loss
+        self._iterations = res.iterations
+        self.Vr_sigma = E.gp_prior_stddev(mean, kernel, self.params["tasks"],
+                                          P0).T
+        self._refresh_api_compat()
+        return self.models, self.likelihoods
+
+    def compute_mll(self, mean=None, kernel=None, likelihood=None):
+        """The training data's MLL and the posterior mean at [train +
+        constraint] points under the initial (untrained) hyperparameters —
+        to calibrate added-loss coefficients.  Returns ``(loss_mll (numpy
+        scalar), Vr_pred (p + n_cstr, r) tensor)``."""
+        mean, kernel, likelihood = self._default_specs(mean, kernel,
+                                                       likelihood)
+        P0, Vr = self.P0, self.Vr
+        like = dict(dtype=P0.dtype, device=P0.device)
+        params = {
+            "tasks": _stack_params(
+                self._init_task_params(mean, kernel, likelihood, like),
+                self.r),
+            "likelihood": likelihood.init_params(**like),
+        }
+        noises = likelihood.noise(params["likelihood"])
+        loss_mll = torch.sum(E.gp_log_prob(mean, kernel, params["tasks"],
+                                           noises, P0, Vr.T))
+        saved = tuple(getattr(self, a, None)
+                      for a in ("mean", "kernel", "likelihood"))
+        self.mean, self.kernel, self.likelihood = mean, kernel, likelihood
+        post = self._posterior_with(params, self._scaled_constraint_points())
+        if saved[0] is not None:
+            self.mean, self.kernel, self.likelihood = saved
+        return to_numpy(loss_mll), post.mean

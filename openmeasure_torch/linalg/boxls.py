@@ -31,7 +31,11 @@ result does not depend on that interval.
 The batched (r, r) factorizations use ``torch.linalg.cholesky_ex`` (no
 error check, hence no host read) and ``torch.cholesky_solve``: the JAX
 package computes them with XLA's ``cho_factor``/``cho_solve`` outside any
-Pallas kernel.
+Pallas kernel.  The MAP's covariance factor goes through
+:func:`..linalg.chol.cholesky_nan`, so a covariance that is not positive
+definite gives NaN as ``jnp.linalg.cholesky`` does; the ADMM's own factor
+``H + ρAᵀA`` is shifted positive definite by construction and keeps the
+plain ``cholesky_ex``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from ..core.device import as_tensor
+from .chol import cholesky_nan
 
 # iterations between host reads of "every element stopped" when tol > 0
 CHECK_EVERY = 16
@@ -387,8 +392,7 @@ def box_constrained_map(mean, cov, A, lo, hi, AtA=None,
     cov, mean, A, lo, hi, AtA, batched = _prepare(cov, mean, A, lo, hi, AtA)
     b = _batch_size((mean, 2), (cov, 3), (lo, 2), (hi, 2))
     r = mean.shape[-1]
-    L, _ = torch.linalg.cholesky_ex(cov)
-    L = torch.broadcast_to(L, (b, r, r))
+    L = torch.broadcast_to(cholesky_nan(cov), (b, r, r))
     mean = torch.broadcast_to(mean, (b, r))
     H = torch.eye(r, dtype=mean.dtype, device=mean.device)
     c = torch.zeros((b, r), dtype=mean.dtype, device=mean.device)

@@ -11,11 +11,14 @@ kernel computes both for the whole batch in one launch
   (p Schur-complement steps, p forward-substitution steps for L⁻¹, the Gram
   L⁻ᵀL⁻¹ as a fixed-order sequential sum, logdet as the sum of the pivots'
   logs); the kernel's oracle on the card, where the two agree bit for bit.
+* :func:`cholesky_nan` — ``jnp.linalg.cholesky``'s failure semantics in
+  torch: the factor of a matrix whose factorization fails is NaN (lower
+  triangle), where ``torch.linalg.cholesky`` raises and synchronizes with
+  the host to check, and ``cholesky_ex`` leaves a partial factor.  Every
+  port call site with a ``jnp.linalg.cholesky`` counterpart uses it.
 * :func:`chol_inv_logdet_torch` — the Cholesky formulation, counterpart of
-  ``chol_inv_logdet_jnp``: ``cholesky_ex`` + ``cholesky_solve`` +
-  2·Σ log diag.  ``cholesky_ex`` and not ``cholesky``: the latter raises on
-  a non-PD matrix where ``jnp.linalg.cholesky`` returns NaN, and it
-  synchronizes with the host to check.
+  ``chol_inv_logdet_jnp``: :func:`cholesky_nan` + ``cholesky_solve`` +
+  2·Σ log diag.
 * :func:`chol_inv_logdet_auto` — the dispatch: a CUDA fp32 batch with
   p ≤ 128 goes to the kernel; everything else (a CPU tensor, float64,
   p > 128) takes the Cholesky formulation, as the JAX package does off the
@@ -102,11 +105,26 @@ def chol_inv_logdet_plain(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _gram_sequential(Y), ld
 
 
+def cholesky_nan(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each matrix of a (..., p, p) stack, NaN in
+    the lower triangle of each matrix whose factorization fails (not
+    positive definite to working precision), as ``jnp.linalg.cholesky``
+    returns it.  ``cholesky_ex`` checks nothing on the host, so neither
+    does this; the upper triangle stays 0."""
+    L, info = torch.linalg.cholesky_ex(K)
+    p = K.shape[-1]
+    low = torch.ones((p, p), dtype=torch.bool, device=K.device).tril()
+    return torch.where((info > 0)[..., None, None] & low,
+                       torch.full((), float("nan"), dtype=L.dtype,
+                                  device=L.device), L)
+
+
 def chol_inv_logdet_torch(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cholesky formulation on a (..., p, p) batch: ``cholesky_ex`` +
-    ``cholesky_solve`` against the identity + 2·Σ log diag.  A non-PD
-    matrix gives NaN or inf, never an exception or a host read."""
-    L, _ = torch.linalg.cholesky_ex(K)
+    """Cholesky formulation on a (..., p, p) batch: :func:`cholesky_nan` +
+    ``cholesky_solve`` against the identity + 2·Σ log diag.  A matrix whose
+    factorization fails gives NaN in its K⁻¹ and logdet, as the JAX
+    formulation does, never an exception or a host read."""
+    L = cholesky_nan(K)
     p = K.shape[-1]
     eye = torch.eye(p, dtype=K.dtype, device=K.device).expand(K.shape)
     kinv = torch.cholesky_solve(eye, L)

@@ -13,13 +13,19 @@ inverse of ``csrc/chol.cu`` in every iteration) → posterior → reconstruct.
 Its trainer reads the card once every 4 Adam iterations (the convergence
 test).
 
-``mfk_end_to_end`` comes with the co-kriging slice (ROADMAP.md §A item 10).
+:func:`mfk_end_to_end` is the latent co-kriging flow in one call — normalize
+→ level-0 θ search + GLS fit → level-0 posterior at the HF sites → level-1
+(ρ-coupled) θ search + GLS fit → recursive posterior at the test points.
+Each NLL evaluation of its θ searches is one batched call of the SPD
+inverse, on the card one launch of ``csrc/chol.cu``; each search reads the
+card once every ``multifi.mfk.CHECK_EVERY`` Newton steps.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .core import scaling as _scaling
@@ -28,6 +34,7 @@ from .gp import exact_gp as _E
 from .gp import kernels as _K
 from .linalg import svd as _svd
 from .linalg.qrcp_cuda import qrcp_pivots_auto
+from .multifi import mfk as _M
 
 
 class SPRResult(NamedTuple):
@@ -83,7 +90,9 @@ def spr_end_to_end(
     y = X_test[p, :]                    # raw sensor readings, (r, m_test)
     y0 = (y - cnt[p, 0][:, None]) / scl[p, 0][:, None]
 
-    Ar = torch.linalg.solve(Theta, y0).T          # (m_test, r)
+    # solve_ex: a singular Theta gives NaN, as jnp.linalg.solve does,
+    # where torch.linalg.solve raises after a host read
+    Ar = torch.linalg.solve_ex(Theta, y0)[0].T     # (m_test, r)
     X_rec0 = B @ (Ar * dinv[None, :]).T
     X_rec = X_rec0 * scl + cnt
 
@@ -182,3 +191,89 @@ def gpr_end_to_end(
     nrmse = torch.sqrt(torch.mean(err * err)) / (
         torch.amax(X_test) - torch.amin(X_test))
     return GPRResult(X_rec, A_pred, A_sigma, nrmse, res.loss, res.iterations)
+
+
+class MFKResult(NamedTuple):
+    mean: torch.Tensor     # (K, n_test) recursive co-kriging posterior mean
+    mse: torch.Tensor      # (K, n_test) posterior MSE
+    theta: torch.Tensor    # (2, K, d) fitted correlation parameters per level
+    newton_steps: torch.Tensor  # (2,) int32 — the slowest lane's Newton
+    #                             steps per level
+
+
+def mfk_end_to_end(
+    X_lf, Y_lf, X_hf, Y_hf, X_test,
+    regr: str = "constant", rho_regr: str = "constant",
+    device: DeviceLike = None,
+) -> MFKResult:
+    """Two-level recursive co-kriging for K outputs sharing the same sites:
+    normalize → level-0 θ multistart + GLS fit → level-0 posterior at the
+    HF sites → level-1 (ρ-coupled) θ multistart + GLS fit → recursive
+    posterior at ``X_test`` → denormalize.  The latent-space workload of
+    ``CoKriging.fit`` + ``predict``, with the default knobs (θ0 = 0.5,
+    bounds [1e-6, 100], initial_range 0.3, tol 1e-6); the same math as
+    :class:`..multifi.mfk.BatchedMFK`.
+
+    ``X_lf`` (n_lf, d), ``Y_lf`` (K, n_lf), ``X_hf`` (n_hf, d), ``Y_hf``
+    (K, n_hf), ``X_test`` (s, d): numpy arrays or tensors, moved to
+    ``device`` (``None`` means the card) in ``X_lf``'s dtype.  The result
+    also carries each level's Newton step count (a port extension, as
+    ``GPRResult.iterations``)."""
+    dev = resolve_device(device)
+    X_lf = as_tensor(X_lf, dev)
+    X_hf, X_test, Y_lf, Y_hf = (as_tensor(a, dev, dtype=X_lf.dtype)
+                                for a in (X_hf, X_test, Y_lf, Y_hf))
+    K_out, d = Y_lf.shape[0], X_lf.shape[1]
+
+    # ---- normalization (BatchedMFK normalize=True semantics) ----
+    X_all = torch.cat([X_lf, X_hf], dim=0)
+    X_mean = torch.mean(X_all, dim=0)
+    X_std0 = torch.std(X_all, dim=0, correction=0)
+    X_std = torch.where(X_std0 == 0.0, torch.ones_like(X_std0), X_std0)
+    Y_all = torch.cat([Y_lf, Y_hf], dim=1)
+    y_mean = torch.mean(Y_all, dim=1)
+    y_std0 = torch.std(Y_all, dim=1, correction=0)
+    y_std = torch.where(y_std0 == 0.0, torch.ones_like(y_std0), y_std0)
+    Xn_lf = (X_lf - X_mean) / X_std
+    Xn_hf = (X_hf - X_mean) / X_std
+    Xn_t = (X_test - X_mean) / X_std
+    Yn_lf = (Y_lf - y_mean[:, None]) / y_std[:, None]
+    Yn_hf = (Y_hf - y_mean[:, None]) / y_std[:, None]
+
+    # ---- hyperparameter search grid (host constants) ----
+    like = dict(dtype=X_lf.dtype, device=dev)
+    theta0, thetaL, thetaU = (np.full((d,), v) for v in (0.5, 1e-6, 100.0))
+    starts = torch.as_tensor(_M._make_starts(theta0, thetaL, thetaU, 0.3),
+                             **like)
+    lo = torch.as_tensor(np.log10(thetaL), **like)
+    hi = torch.as_tensor(np.log10(thetaU), **like)
+
+    def fit_level(Xl, F_batch, Yl):
+        log_t, steps = _M._multistart_opt_batch(starts, Xl, F_batch, Yl, lo,
+                                                hi, 1e-6)
+        thetas = 10.0 ** log_t
+        beta, gamma, sigma2, L, Ggls = _M._level_fit_terms(thetas, Xl,
+                                                           F_batch, Yl)
+        return dict(X=Xl, Y=Yl, F=F_batch, theta=thetas, beta=beta,
+                    gamma=gamma, sigma2=sigma2, L=L, G=Ggls), steps
+
+    # ---- level 0 (LF) ----
+    F0 = _M._regr(regr, Xn_lf)
+    lev0, steps0 = fit_level(Xn_lf, F0.expand((K_out,) + F0.shape), Yn_lf)
+
+    # ---- level 1 (HF, rho-coupled) ----
+    G1 = _M._regr(rho_regr, Xn_hf)
+    m_prev = _M.predict_levels_mean_batch([lev0], (0,), regr, rho_regr, 0,
+                                          Xn_hf)
+    Fr = _M._regr(regr, Xn_hf)
+    F1 = torch.cat([G1[None] * m_prev[:, :, None],
+                    Fr.expand((K_out,) + Fr.shape)], dim=2)
+    lev1, steps1 = fit_level(Xn_hf, F1, Yn_hf)
+
+    # ---- recursive posterior at X_test ----
+    mean_n, var_n = _M.predict_levels_batch([lev0, lev1], (0, G1.shape[1]),
+                                            regr, rho_regr, 1, Xn_t)
+    mean = mean_n * y_std[:, None] + y_mean[:, None]
+    mse = var_n * y_std[:, None] ** 2
+    return MFKResult(mean, mse, torch.stack([lev0["theta"], lev1["theta"]]),
+                     torch.stack([steps0, steps1]).to(torch.int32))

@@ -1,5 +1,5 @@
 """Low-latency soft-sensor serving (port of ``openmeasure_tpu/serving.py``:
-``SoftSensor`` and ``GPRSensor``).
+``SoftSensor``, ``GPRSensor`` and ``CoKrigingSensor``).
 
 A fitted model is packaged for streaming inference: its state lives on the
 card, and one call runs a whole batch of measurements — scaling, the
@@ -14,8 +14,12 @@ the reconstruction — with no read back to the host::
     gsensor = GPRSensor.from_gpr(gpr, limits=[lo, hi])
     fields, A, A_sigma = gsensor(P_star)           # (q, d) -> (q, n)
 
+    csensor = CoKrigingSensor.from_cokriging(ck)   # ck after align + fit
+    Y_pred, Y_mse = csensor(X_test)                # (q, d) -> (n, q)
+
 As in the JAX package, the model state is a dict passed to module-level
-functions (``_predict_math``, ``_gpr_predict_math``), not closed over, so
+functions (``_predict_math``, ``_gpr_predict_math``,
+``_ck_predict_math``), not closed over, so
 every sensor of one shape runs the same code on its own state.  Where the
 JAX package ``vmap``s the single-request math over a batch, the math here
 takes the batch as a leading axis.  The constrained solves run a fixed
@@ -31,7 +35,9 @@ Documented deviation: ``GPRSensor.from_gpr`` casts the GP parameters and
 training set to the sensor's dtype (the basis's) on its device; the JAX
 package leaves them in their own dtype, so a host-engine model's float64
 parameters reach its device program.  A GPR sensor therefore always serves
-in the basis's dtype.
+in the basis's dtype.  ``CoKrigingSensor.from_cokriging`` does the same with
+the co-kriging level state (a host-engine fit's float64 levels included),
+where the JAX package casts to its ambient default float.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from .core.device import DeviceLike, as_tensor, resolve_device, to_numpy
 from .gp.exact_gp import tree_map
 from .gp.gpr import posterior_all_modes
 from .linalg import boxls as _boxls
+from .multifi.mfk import predict_levels_batch
 
 _ITEM_14 = "(ROADMAP.md §A item 14: sharding and checkpoints)"
 
@@ -465,6 +472,108 @@ class GPRSensor:
             self.admm_rho == "adaptive")
 
     def warmup(self, batch: int = 1) -> "GPRSensor":
+        Ur = self._state["Ur"]
+        self(torch.zeros((batch, self.d), dtype=Ur.dtype, device=Ur.device))
+        if Ur.device.type == "cuda":
+            torch.cuda.synchronize(Ur.device)
+        return self
+
+
+# ---------------------------------------------------------------------- #
+# CoKriging serving: multifidelity parameters -> HF field
+# ---------------------------------------------------------------------- #
+
+def _ck_predict_math(state, X, regr, rho_regr, rho_cols_seq, n_levels):
+    """Recursive co-kriging posterior of every latent dimension, the HF
+    projection and the unscaling: ``CoKriging.predict`` as one function of
+    the state.  Like ``CoKriging.predict`` it unscales the MSE through the
+    same affine map as the mean (the reference's quirk, kept)."""
+    Xn = (X - state["X_mean"][None, :]) / state["X_std"][None, :]
+    mean, var = predict_levels_batch(state["levels"], rho_cols_seq, regr,
+                                     rho_regr, n_levels - 1, Xn)
+    means = mean * state["y_std"][:, None] + state["y_mean"][:, None]
+    mses = var * state["y_std"][:, None] ** 2
+    scl, cnt = state["X_scl"][:, None], state["X_cnt"][:, None]
+    return (scl * (state["Ur"] @ means) + cnt,
+            scl * (state["Ur"] @ mses) + cnt)
+
+
+class CoKrigingSensor:
+    """Packaged multifidelity parameter→field sensor of a fitted
+    :class:`openmeasure_torch.CoKriging` (after ``manifold_alignment`` and
+    ``fit``)::
+
+        sensor = CoKrigingSensor.from_cokriging(ck)
+        Y_pred, Y_mse = sensor(X_test)          # (q, d) -> (n, q), (n, q)
+
+    The output orientation is ``CoKriging.predict``'s.  The state lives on
+    the basis's device in its dtype."""
+
+    def __init__(self, regr, rho_regr, rho_cols_seq, n_levels, state):
+        self.regr = regr
+        self.rho_regr = rho_regr
+        self.rho_cols_seq = tuple(rho_cols_seq)
+        self.n_levels = int(n_levels)
+        self._state = state
+        self.d = int(state["X_mean"].shape[0])
+        self.n = int(state["Ur"].shape[0])
+
+    @classmethod
+    def from_cokriging(cls, ck) -> "CoKrigingSensor":
+        """Package ``ck`` on its basis's device in the basis's dtype: the
+        level state is cast to it, a host-engine fit's float64 levels
+        included (the JAX package casts to its ambient default float)."""
+        if not hasattr(ck, "_batch"):
+            raise AttributeError(
+                "CoKrigingSensor needs a CoKriging fitted with the batched "
+                "engine (call manifold_alignment() then fit()).")
+        b = ck._batch
+        Ur = ck.Ur_hf[:, :ck.n_latent]
+        dev, dtype = Ur.device, Ur.dtype
+
+        def t(x):
+            return as_tensor(x, dev, dtype=dtype)
+
+        state = {
+            "levels": [{k: t(v) for k, v in lev.items() if k != "rho_cols"}
+                       for lev in b.levels],
+            "X_mean": t(b._X_mean),
+            "X_std": t(b._X_std),
+            "y_mean": t(b._y_mean),
+            "y_std": t(b._y_std),
+            "Ur": Ur,
+            "X_cnt": t(ck.rom_hf.X_cnt)[:, 0],
+            "X_scl": t(ck.rom_hf.X_scl)[:, 0],
+        }
+        rho_cols_seq = tuple(lev["rho_cols"] for lev in b.levels)
+        return cls(b._proto.regr, b._proto.rho_regr, rho_cols_seq,
+                   b.n_levels, state)
+
+    @classmethod
+    def load(cls, *args, **kwargs):
+        raise NotImplementedError(
+            f"CoKrigingSensor.load (.npz checkpoints) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def shard(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"CoKrigingSensor.shard (multi-card serving) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def __call__(self, X_test):
+        Ur = self._state["Ur"]
+        X_test = as_tensor(X_test, Ur.device, dtype=Ur.dtype)
+        if X_test.ndim < 2:
+            X_test = X_test[None, :]
+        if X_test.shape[1] != self.d:
+            raise ValueError(
+                f"X_test must be (q, d={self.d}); got "
+                f"{tuple(X_test.shape)}.")
+        return _ck_predict_math(self._state, X_test, self.regr,
+                                self.rho_regr, self.rho_cols_seq,
+                                self.n_levels)
+
+    def warmup(self, batch: int = 1) -> "CoKrigingSensor":
         Ur = self._state["Ur"]
         self(torch.zeros((batch, self.d), dtype=Ur.dtype, device=Ur.device))
         if Ur.device.type == "cuda":

@@ -1,12 +1,13 @@
-"""Fitted state carried across from the JAX package's SPR and GPR.
+"""Fitted state carried across from the JAX package's SPR, GPR and
+CoKriging.
 
-:func:`spr_from_numpy` and :func:`gpr_from_numpy` are the port's
-counterpart of loading weights: each builds a fitted (and trained) port
-model from the JAX model's attributes read out as numpy arrays, under the
-key names of the JAX checkpoint format
-(``openmeasure_tpu/utils/checkpoint.py:69-107``: attribute names, the GP
-parameters flattened as ``params/<path>``, the specs as ``{"cls": name,
-"fields": {...}}``).  Reading the ``.npz`` checkpoint files themselves is
+:func:`spr_from_numpy`, :func:`gpr_from_numpy` and
+:func:`cokriging_from_numpy` are the port's counterpart of loading
+weights: each builds a fitted (and trained) port model from the JAX
+model's attributes read out as numpy arrays, under the key names of the
+JAX checkpoint format (``openmeasure_tpu/utils/checkpoint.py:69-107``:
+attribute names, the GP parameters flattened as ``params/<path>``, the
+specs as ``{"cls": name, "fields": {...}}``; ``:235-319`` for CoKriging).  Reading the ``.npz`` checkpoint files themselves is
 ROADMAP.md §A item 14.
 """
 
@@ -15,13 +16,17 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from ..core.device import DeviceLike, as_tensor
-from ..core.host64 import tree_f64
+from ..core.host64 import HOST, tree_f64
 from ..gp import kernels as K
 from ..gp.exact_gp import tree_map
 from ..gp.gpr import GPR
 from ..linalg.boxls import LinearConstraints
+from ..multifi.cokriging import CoKriging
+from ..multifi.mfk import BatchedMFK, MultiFiCoKriging, _BatchedMFKView
+from ..rom.rom import ROM
 from ..sensing.spr import SPR
 
 ARRAY_KEYS = ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r", "xyz", "Theta",
@@ -182,3 +187,71 @@ def gpr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
     gpr._refresh_api_compat()
     return gpr
 
+
+
+COK_BATCH_SCALARS = ("_X_mean", "_X_std", "_y_mean", "_y_std")
+COK_LEVEL_KEYS = ("X", "Y", "F", "theta", "beta", "gamma", "sigma2", "L",
+                  "G")
+
+
+def cokriging_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
+                         device: DeviceLike = None) -> CoKriging:
+    """A fitted port CoKriging holding ``state`` on ``device`` (``None``
+    means the card), ready to ``predict`` without its training snapshots.
+
+    ``state`` has the JAX checkpoint's keys: ``attr/Ur_hf`` (and optionally
+    ``attr/Zr_hf``, ``attr/Zr_aligned``), ``romhf/X_cnt``, ``romhf/X_scl``,
+    ``romhf/xyz``, ``batch/{_X_mean,_X_std,_y_mean,_y_std}`` and
+    ``batch/level{l}/{X,Y,F,theta,beta,gamma,sigma2,L,G}``; ``meta`` has
+    ``n_features``, ``n_latent``, ``regr_type``, ``rho_regr``,
+    ``normalize``, ``engine`` and ``batch = {"n_levels", "K",
+    "rho_cols"}``.  With ``engine='host'`` the level state is kept on the
+    host in float64, where that engine predicts; otherwise on ``device``
+    in the dtype of ``attr/Ur_hf``."""
+    missing = [k for k in ("attr/Ur_hf", "romhf/X_cnt", "romhf/X_scl")
+               if k not in state]
+    if missing:
+        raise KeyError(f"cokriging_from_numpy: state lacks {missing}")
+    obj = object.__new__(CoKriging)
+    obj.n_features = int(meta["n_features"])
+    obj.n_latent = int(meta["n_latent"])
+    obj.regr_type = meta["regr_type"]
+    obj.rho_regr = meta["rho_regr"]
+    obj.normalize = meta["normalize"]
+    obj.engine = meta.get("engine", "device")
+    # the prediction-time rom_hf needs only the scaling statistics
+    n = np.asarray(state["romhf/X_cnt"]).shape[0]
+    rom = ROM(np.broadcast_to(np.zeros(()), (n, 1)), obj.n_features,
+              state.get("romhf/xyz"), device=device)
+    obj.device = rom.device
+    obj.xyz_hf = state.get("romhf/xyz")
+    for key in ("Ur_hf", "Zr_hf", "Zr_aligned"):
+        if f"attr/{key}" in state:
+            setattr(obj, key, as_tensor(state[f"attr/{key}"], rom.device))
+    rom.X_cnt = as_tensor(state["romhf/X_cnt"], rom.device)
+    rom.X_scl = as_tensor(state["romhf/X_scl"], rom.device)
+    obj.rom_hf = rom
+
+    bm = meta["batch"]
+    host = obj.engine == "host"
+    place = (HOST, torch.float64) if host else (rom.device, obj.Ur_hf.dtype)
+    batch = object.__new__(BatchedMFK)
+    batch._proto = MultiFiCoKriging(obj.regr_type, obj.rho_regr,
+                                    normalize=obj.normalize,
+                                    engine=obj.engine, device=rom.device)
+    # predict re-enters the engine the level state is placed on
+    batch._proto._fit_engine = obj.engine
+    batch._proto._fit_place = place
+    batch.n_levels = int(bm["n_levels"])
+    batch.K = int(bm["K"])
+    for name in COK_BATCH_SCALARS:
+        setattr(batch, name, np.asarray(state[f"batch/{name}"], np.float64))
+    batch.levels = []
+    for l in range(batch.n_levels):
+        lev = {key: as_tensor(state[f"batch/level{l}/{key}"], place[0],
+                              dtype=place[1]) for key in COK_LEVEL_KEYS}
+        lev["rho_cols"] = int(bm["rho_cols"][l])
+        batch.levels.append(lev)
+    obj._batch = batch
+    obj.model_list = [_BatchedMFKView(batch, k) for k in range(obj.n_latent)]
+    return obj

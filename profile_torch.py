@@ -3,7 +3,7 @@
 
 Run from the root of a checkout::
 
-    python3 profile_torch.py [qrcp] [chol] [spr] [gp] [serving]
+    python3 profile_torch.py [qrcp] [chol] [spr] [gp] [serving] [mfk]
 
 With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
 per call against k on random panels of the main path's shapes and layout
@@ -44,7 +44,13 @@ and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
   time by kernel name and by kind (GEMM, factorizations and triangular
   solves, reductions, elementwise passes), launches per batch and per ADMM
   iteration, device-to-host copies, and the median device time of one GEMM
-  launch (``utils/timing.device_ms``).
+  launch (``utils/timing.device_ms``);
+* ``mfk``: one traced fp32 ``mfk_end_to_end`` at configuration A of
+  ``chip_smoke.py`` (K = 8 outputs, 40 LF and 15 HF sites, d = 2): device
+  busy share, device time by kernel name and by kind (the chol kernel
+  apart), launches per Newton step (per evaluation of the value, gradient
+  and Hessian), ``csrc/chol.cu`` launches per NLL evaluation, and
+  device-to-host copies.
 
 It needs a card and stops without one.  Every number it prints was
 measured on the card named on its first line.
@@ -63,6 +69,29 @@ R = 14
 N_FEATURES = 9
 CUBE = dict(n_cells=191511, n_features=N_FEATURES, m_train=45, m_test=4,
             seed=1)
+# device kernels by kind, matched on the lower-cased kernel name; the first
+# kind that matches wins
+KINDS = (("csrc/chol.cu", ("chol_inv_logdet",)),
+         ("GEMM", ("gemm", "gemv", "cutlass", "xmma")),
+         ("factorizations and triangular solves",
+          ("potrf", "potrs", "trsm", "trsv", "geqrf", "orgqr", "ormqr",
+           "larf", "chol", "magma", "getrf", "getrs", "lu_")),
+         ("copies", ("memcpy", "memset")),
+         ("reductions", ("reduce",)),
+         ("elementwise", ("elementwise", "vectorized", "unrolled", "where",
+                          "clamp")))
+
+
+def by_kind(by_name):
+    """``{kind: [us, launches]}`` of a ``{kernel name: [us, count]}`` sum."""
+    sums = defaultdict(lambda: [0.0, 0])
+    for name, (us, cnt) in by_name.items():
+        low = name.lower()
+        kind = next((kd for kd, keys in KINDS if any(k in low for k in keys)),
+                    "other")
+        sums[kind][0] += us
+        sums[kind][1] += cnt
+    return sums
 
 
 def main() -> int:
@@ -86,7 +115,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    known = {"qrcp", "chol", "spr", "gp", "serving"}
+    known = {"qrcp", "chol", "spr", "gp", "serving", "mfk"}
     sections = set(sys.argv[1:]) or known
     unknown = sections - known
     if unknown:
@@ -310,14 +339,6 @@ def main() -> int:
         rows = C.argmax(dim=1).cpu().numpy()
         Y = torch.as_tensor(np.tile(d["X_test"][rows].T, (13, 1))[:50],
                             device=dev)
-        kinds = (("GEMM", ("gemm", "gemv", "cutlass", "xmma")),
-                 ("factorizations and triangular solves",
-                  ("potrf", "potrs", "trsm", "trsv", "geqrf", "orgqr",
-                   "ormqr", "larf", "chol", "magma", "getrf")),
-                 ("copies", ("memcpy", "memset")),
-                 ("reductions", ("reduce",)),
-                 ("elementwise", ("elementwise", "vectorized", "unrolled",
-                                  "where", "clamp")))
         print("serving, flagship COLS SoftSensor: one traced predict_batch "
               "of 50 frames, 300 ADMM iterations", flush=True)
         for mode in ("adaptive", "fixed"):
@@ -330,13 +351,7 @@ def main() -> int:
                            if "memcpy" not in k.lower()
                            and "memset" not in k.lower())
             dtoh = sum(v[1] for k, v in by_name.items() if "DtoH" in k)
-            sums = defaultdict(lambda: [0.0, 0])
-            for name, (us, cnt) in by_name.items():
-                low = name.lower()
-                kind = next((kd for kd, keys in kinds
-                             if any(k in low for k in keys)), "other")
-                sums[kind][0] += us
-                sums[kind][1] += cnt
+            sums = by_kind(by_name)
             print("    by kind: " + "; ".join(
                 f"{kd} {us / 1e3:.4f} ms ({100 * us / max(total, 1e-9):.1f} "
                 f"%, {cnt} launches)" for kd, (us, cnt) in
@@ -349,6 +364,57 @@ def main() -> int:
                   f"{window / 1e3 / 50:.5f} ms; one GEMM launch "
                   f"{gemm_ms:.5f} ms device time (median of {gemm_n})",
                   flush=True)
+    if "mfk" in sections:
+        from openmeasure_torch.linalg import chol_cuda
+        from openmeasure_torch.multifi import mfk as mfk_mod
+        from openmeasure_torch.pipelines import mfk_end_to_end
+        sys.path.insert(0, str(ROOT))
+        from chip_smoke import mfk_problem
+        args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in mfk_problem()]
+        print("co-kriging, configuration A: one traced fp32 mfk_end_to_end "
+              "(K = 8, 40 LF and 15 HF sites, d = 2)", flush=True)
+        counts = defaultdict(int)
+        real = {name: getattr(mfk_mod, name)
+                for name in ("_value_grad_hess", "_level_nll_inv")}
+
+        def counted(name):
+            def call(*a):
+                counts[name] += 1
+                return real[name](*a)
+            return call
+
+        for name in real:
+            setattr(mfk_mod, name, counted(name))
+        try:
+            mfk_end_to_end(*args)          # warm-up, outside the counts
+            sync()
+            counts.clear()
+            chol_cuda.chol_inv_logdet_cuda.launches = 0
+            by_name, window = breakdown(lambda: mfk_end_to_end(*args), top=15)
+        finally:
+            for name, fn in real.items():
+                setattr(mfk_mod, name, fn)
+        # breakdown runs the call twice (a warm-up, then the trace)
+        steps = counts["_value_grad_hess"] // 2
+        evals = counts["_level_nll_inv"] // 2
+        chol_n = chol_cuda.chol_inv_logdet_cuda.launches // 2
+        total = sum(v[0] for v in by_name.values())
+        launches = sum(v[1] for k, v in by_name.items()
+                       if "memcpy" not in k.lower()
+                       and "memset" not in k.lower())
+        dtoh = sum(v[1] for k, v in by_name.items() if "DtoH" in k)
+        print("    by kind: " + "; ".join(
+            f"{kd} {us / 1e3:.4f} ms ({100 * us / max(total, 1e-9):.1f} %, "
+            f"{cnt} launches)" for kd, (us, cnt) in
+            sorted(by_kind(by_name).items(), key=lambda kv: -kv[1][0])),
+            flush=True)
+        print(f"    {steps} Newton steps (value-gradient-Hessian "
+              f"evaluations, both levels), {evals} NLL evaluations, "
+              f"csrc/chol.cu launches {chol_n}; {launches} kernel launches "
+              f"in the call, {launches / max(steps, 1):.1f} per Newton step; "
+              f"window per Newton step {window / 1e3 / max(steps, 1):.4f} ms; "
+              f"device-to-host copies {dtoh}", flush=True)
     print(smi, flush=True)
     return 0
 

@@ -32,6 +32,7 @@ from openmeasure_tpu.gp import kernels as JK
 from openmeasure_tpu.pipelines import gpr_end_to_end as j_gpr, pod_fit as j_pod
 from openmeasure_tpu.utils import checkpoint as JCK
 from openmeasure_torch import GPR as TGPR
+from openmeasure_torch import ROM
 from openmeasure_torch.core.config import FitConfig, GPTrainConfig
 from openmeasure_torch.datasets.synthetic import make_flame_dataset
 from openmeasure_torch.pipelines import gpr_end_to_end as t_gpr
@@ -207,8 +208,8 @@ def test_errors_and_unported_parts(flame):
         tg.predict(flame["P_test"], limits=[0.0, 1.0])
     with pytest.raises(NotImplementedError, match="MultiTask"):
         tg.predict(flame["P_test"], problem_dict={"bc": ([0], np.ones((1, 3)))})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tg.update(flame["P_test"], np.zeros((3, R)))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ROM.update_basis(tg, flame["X_test"])
     with pytest.raises(NotImplementedError, match="item 14"):
         tg.update_basis(flame["X_test"], flame["P_test"])
     P_bad = np.array(flame["P_train"])

@@ -33,6 +33,7 @@ def test_import_without_jax_in_a_fresh_process():
         "import openmeasure_torch.gp.kernels, openmeasure_torch.gp.exact_gp\n"
         "import openmeasure_torch.gp.gpr, openmeasure_torch.core.host64\n"
         "import openmeasure_torch.linalg.boxls, openmeasure_torch.serving\n"
+        "import openmeasure_torch.multifi.mfk, openmeasure_torch.multifi.cokriging\n"
         "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
         "       or m.startswith(('jax.', 'openmeasure_tpu.'))]\n"
         "assert sys.modules['jax'] is None and not bad, bad\n"
@@ -71,3 +72,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SoftSensor(X[:, :3], X[:3, :3], np.zeros(3), np.ones(3),
                    np.zeros(40), np.ones(40))
+    from openmeasure_torch import PIGPR, CoKriging, MultiFiCoKriging
+    from openmeasure_torch.pipelines import mfk_end_to_end
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mfk_end_to_end(P, X[:2, :6], P[:3], X[:2, :3], P[:2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CoKriging(P[:3], P[3:], X[:, :3], X[:, 3:], X[:, :3],
+                  np.zeros((20, 3)), np.zeros((20, 3)), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiFiCoKriging()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PIGPR(X, 2, np.zeros((20, 3)), P, P[:2], None)

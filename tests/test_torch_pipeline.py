@@ -183,8 +183,8 @@ def test_unported_methods_raise_with_roadmap_item(flame, fitted_pair):
     with pytest.raises(NotImplementedError, match="item 14"):
         ts.update_basis(flame["X_test"])
     import openmeasure_torch
-    with pytest.raises(AttributeError, match="A.10"):
-        openmeasure_torch.CoKriging
+    with pytest.raises(AttributeError, match="A.11"):
+        openmeasure_torch.ShallowDecoder
     with pytest.raises(AttributeError, match="A.13"):
         openmeasure_torch.DynamicSensor
 
