@@ -32,7 +32,23 @@ paths through their user entry points:
   outward (the timed configuration) and once padded inward so that they
   bind, and an OLS sensor against ``SPR.predict``; ``GPRSensor.from_gpr`` on the MultiTask model, without
   and with limits, against the eager ``GPR.predict``; ``ROM.CPOD`` on the
-  41 flagship snapshots.
+  41 flagship snapshots;
+* the other placements (phase 16) at flagship width through
+  ``SPR.optimal_placement``: GEM (10 sensors, d_min = 0.05), D-optimal DG
+  (28 sensors, its phase 1 one ``csrc/qrcp.cu`` launch bit-equal to the
+  plain sweep) and vector probes VDG (4 × 9 features), each fp32
+  selection's objective held against float64 arithmetic's on the same
+  basis, its host reads against the JAX code's, and the held-out gappy-POD
+  NRMSE of each sensor set;
+* the shallow decoder (phase 17): ``ShallowDecoder`` (hidden (40, 45), 2000
+  epochs) on the QR sensors and on the probes, fp32 against float64 from
+  the same initial weights, no host read in training, and its
+  ``DecoderSensor`` at batch 50 with no host read, against ``predict``;
+* the temporal layer (phase 18): ``DMD`` on the dynamics example's series
+  (fp32 eigenvalues against float64 at the same rank), ``DynamicSensor``
+  against the memoryless ``SoftSensor`` under 50 % sensor noise, and
+  ``DynamicSensor.from_spr`` on the flagship model at batch 50: filter and
+  smoother against a float64 sensor, with no host read in a batch.
 
 The QRCP kernel is held bit-equal to the plain sweep (a panel with a NaN
 entry, and k > n, included), and ``qrcp_pivots_auto`` must launch it and
@@ -152,6 +168,113 @@ CK_SENSOR_REL = 1e-5
 # configuration C: the temperature block's physical band (K), the
 # docs/examples/pigpr_example.py recipe
 T_LO, T_HI = 200.0, 3000.0
+
+
+# placements (phase 16): sensors per family (bench.py:650-678 cites GEM's
+# 10 for full scale; DG 2r; VDG 4 probes × 9 features,
+# docs/examples/decoder_example.py:33-34).  fp32 and float64 selections can
+# differ at near ties (QR shares 1 of 14 pivots), so objectives are compared,
+# each evaluated in float64: the fp32 selection's must be within this
+# fraction of float64 arithmetic's on the same (the fp32 model's) basis, or
+# better; VDG's float64 run gets the fp32 run's δ, whose 64·p·eps floor is
+# far above float64's.  Against the float64 model's selection on the
+# float64 basis the gap is printed: there the fp32 basis's trailing modes,
+# which differ from float64's by up to ~4e-2 on this set, decide it
+PLACE_N = {"gem": 10, "dg": 28, "vdg": 4}
+PLACE_OBJ_REL = 1e-3
+# the shallow decoder (phase 17, docs/examples/decoder_example.py:53-54):
+# fp32 and float64 from the same initial weights; training amplifies
+# round-off through the ReLU pattern, so the held-out NRMSEs are held
+# within this fraction of each other; the served batch against predict
+# (the same fp32 MLP forward)
+DEC_HIDDEN, DEC_EPOCHS, DEC_LR = (40, 45), 2000, 3e-3
+DEC_FP32_SLACK = 0.10
+DEC_SERVE_REL = 1e-5
+# dynamics (phase 18): fp32 Kalman fields against the float64 sensor's,
+# relative to the float64 field range; DMD's 6 largest-amplitude
+# eigenvalues (fp32 Gram-route SVD, float64 analysis on the host)
+KF_FIELD_REL = 1e-3
+DMD_EIG_ABS = 1e-4
+
+
+def gem_entropy(U, sel):
+    """GEM's objective H_tot of the ordered selection ``sel`` on the
+    float64 basis ``U`` (host numpy): Σ over the steps after the first of
+    ½ log σ²_{y|a} + ½ (log 2π + 1), with GEM's row scaling and 1e-5
+    jitter (``sensing/gem.py``)."""
+    import numpy as np
+    r = U.shape[1]
+    Us = U * (2.0 / np.sqrt(np.nanmax(np.var(U, axis=1, ddof=1))))
+    Uc = Us - Us.mean(axis=1, keepdims=True)
+    H = 0.0
+    for s in range(1, len(sel)):
+        Cs, u = Uc[sel[:s]], Uc[sel[s]]
+        Saa = Cs @ Cs.T / (r - 1) + 1e-5 * np.eye(s)
+        Sya = Cs @ u / (r - 1)
+        H += 0.5 * np.log(u @ u / (r - 1) - Sya @ np.linalg.solve(Saa, Sya)) \
+            + 0.5 * (np.log(2 * np.pi) + 1.0)
+    return H
+
+
+def dg_logdet(U, sel):
+    """DG's objective log det(ΘᵀΘ), Θ = U[sel] (host float64)."""
+    import numpy as np
+    T = U[np.asarray(sel)]
+    return float(np.linalg.slogdet(T.T @ T)[1])
+
+
+def vdg_delta(U, n_features, eps, ridge=1e-6):
+    """(δ, mean block energy / p) as ``vector_dg_select`` sets them for
+    the basis ``U`` in a dtype of unit round-off ``eps``: the fp32 floor
+    64·p·eps·max‖U_j‖² is far above float64's, so an fp32 and a float64
+    selection optimize different δ unless float64 is given fp32's."""
+    import numpy as np
+    n, r = U.shape
+    blocks = np.swapaxes(U.reshape(n_features, n // n_features, r), 0, 1)
+    e = np.sum(blocks ** 2, axis=(1, 2))
+    energy = e.mean() / n_features
+    return max(ridge * energy, 64.0 * n_features * eps * e.max()), energy
+
+
+def vdg_logdet(U, points, n_features, delta):
+    """VDG's objective log det(δI + ΘᵀΘ) of the probes' stacked feature
+    blocks (host float64)."""
+    import numpy as np
+    n, r = U.shape
+    blocks = np.swapaxes(U.reshape(n_features, n // n_features, r), 0, 1)
+    T = blocks[np.asarray(points)].reshape(-1, r)
+    return float(np.linalg.slogdet(delta * np.eye(r) + T.T @ T)[1])
+
+
+def dynamics_series():
+    """The time series of ``docs/examples/dynamics_example.py``: three
+    damped rotations (latent rank 6) lifted to 50,000 points × 2 features,
+    60 + 40 snapshots, made from seed 0 in its order.  Returns (X_train,
+    X_test, xyz, the generator), whose next draws are the example's
+    sensor noise."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n_points, m_train, m_test = 50_000, 60, 40
+    n = n_points * 2
+    L, _ = np.linalg.qr(rng.standard_normal((n, 6)).astype(np.float64))
+    L *= np.array([[3.0, 3.0, 1.5, 1.5, 0.8, 0.8]])
+
+    def rot(th, rho):
+        return rho * np.array([[np.cos(th), -np.sin(th)],
+                               [np.sin(th), np.cos(th)]])
+
+    A_z = np.zeros((6, 6))
+    A_z[0:2, 0:2] = rot(0.35, 0.998)
+    A_z[2:4, 2:4] = rot(0.12, 0.995)
+    A_z[4:6, 4:6] = rot(0.58, 0.99)
+    z = rng.standard_normal(6)
+    Z = []
+    for _ in range(m_train + m_test):
+        Z.append(z)
+        z = A_z @ z + 0.02 * rng.standard_normal(6)
+    X = (L @ np.array(Z).T).astype(np.float32) + 5.0
+    xyz = rng.standard_normal((n_points, 3))
+    return X[:, :m_train], X[:, m_train:], xyz, rng
 
 
 def chol_ops(B: int, p: int) -> int:
@@ -570,18 +693,31 @@ def main() -> int:
             f"refine: {peak:.1f} MiB")
 
     def trace_counts(fn):
-        """(device kernels, device-to-host copies) in torch.profiler's
-        trace of one call of ``fn``; kernels None when the trace holds no
-        device activity."""
+        """(device kernels, device-to-host copies) of one call of ``fn`` in
+        torch.profiler's trace; kernels None when the trace holds no device
+        activity.  A trace can miss its first few device events, so a few
+        small launches go first, and only the events that start after the
+        call began are counted."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
+        lead = torch.zeros(1, device=dev)
         sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(8):
+                lead.add_(1.0)
             sync()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+            with record_function("chip_smoke::call"):
+                fn()
+                sync()
+        events = list(prof.events())
+        t0 = min(e.time_range.start for e in events
+                 if e.name == "chip_smoke::call")
+        # the marker itself shows on the device's timeline as a range
+        names = [e.name for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and e.time_range.start >= t0
+                 and e.name != "chip_smoke::call"]
         kernels = [n for n in names if "memcpy" not in n.lower()
                    and "memset" not in n.lower()]
         return (len(kernels) if kernels else None,
@@ -1418,6 +1554,292 @@ def main() -> int:
         "plain_ms": pms, "bound_ms": max(bms, oms),
         "bound_by": "bytes" if bms >= oms else "operations",
         "library_ms": None})
+
+    # ---- the other placements (phase 16) --------------------------------
+    from openmeasure_torch import (DMD, DecoderSensor, DynamicSensor,
+                                   ShallowDecoder)
+    from openmeasure_torch.sensing import decoder as dec_mod
+    from openmeasure_torch.sensing import dg as dg_mod
+    from openmeasure_torch.sensing import gem as gem_mod
+    from openmeasure_torch.sensing import vector as vec_mod
+
+    log(f"phase 16: placements at flagship width (165,258 rows, r = 14): "
+        f"GEM {PLACE_N['gem']} sensors with d_min = 0.05, DG "
+        f"{PLACE_N['dg']} (2r), VDG {PLACE_N['vdg']} probes × 9 features; "
+        f"the fp32 selections' objectives (in float64) within "
+        f"{PLACE_OBJ_REL} of float64 arithmetic's on the same basis, or "
+        f"better; the float64 model's beside them")
+    t_phase = time.perf_counter()
+    spr_p = SPR(flag["X_train"], 9, flag["xyz"])
+    spr_p.fit(select_modes="number", n_modes=14)
+    spr_64 = SPR(flag["X_train"].astype(np.float64), 9, flag["xyz"])
+    spr_64.fit(select_modes="number", n_modes=14)
+    U64 = spr_64.Ur.cpu().numpy()
+    C_qr, n_qr16 = counted(lambda: spr_p.optimal_placement())
+    rows_qr = C_qr.argmax(dim=1).cpu().numpy()
+    if n_qr16 != 1:
+        fail(f"the QR placement launched csrc/qrcp.cu {n_qr16} times, not 1")
+    place_kw = {"gem": dict(n_sensors=PLACE_N["gem"], d_min=0.05),
+                "dg": dict(n_sensors=PLACE_N["dg"]),
+                "vdg": dict(n_sensors=PLACE_N["vdg"])}
+    tiled = np.tile(flag["xyz"], (9, 1))
+    U32d = spr_p.Ur.double()
+    U32np = U32d.cpu().numpy()
+    # VDG's δ: float64 arithmetic on the fp32 model's basis is given the
+    # fp32 run's δ, and each basis's objective is taken at its model's δ
+    d32, e32 = vdg_delta(U32np, 9, float(np.finfo(np.float32).eps))
+    d64, _ = vdg_delta(U64, 9, float(np.finfo(np.float64).eps))
+    # each family's selection by float64 arithmetic on the fp32 model's
+    # basis, and each family's objective on a basis
+    select64 = {
+        "gem": lambda U: gem_mod.gem_select(U, tiled, PLACE_N["gem"],
+                                            d_min=0.05),
+        "dg": lambda U: dg_mod.dg_select(U, PLACE_N["dg"]),
+        "vdg": lambda U: vec_mod.vector_dg_select(U, 9, PLACE_N["vdg"],
+                                                  ridge=d32 / e32)}
+    objective = {"gem": gem_entropy, "dg": dg_logdet,
+                 "vdg": lambda U, sel: vdg_logdet(
+                     U, sel, 9, d32 if U is U32np else d64)}
+    # the JAX code's reads: GEM one (the result), DG one (the result), VDG
+    # three (the block energies' mean and max, then the result)
+    jax_reads = {"gem": 1, "dg": 1, "vdg": 3}
+
+    def gappy_nrmse(C):
+        """Held-out NRMSE of the gappy-POD solve with the sensors of C."""
+        spr_p.train(C)
+        rows = C.argmax(dim=1).cpu().numpy()
+        ys = [np.column_stack([flag["X_test"][rows, j], np.zeros(rows.size),
+                               rows // npts])
+              for j in range(flag["X_test"].shape[1])]
+        a, _ = spr_p.predict(ys)
+        return float(nrmse(spr_p.reconstruct(a), Tf))
+
+    def points(kind, spr, C):
+        return (spr.sensor_points if kind == "vdg"
+                else C.argmax(dim=1).cpu().numpy())
+
+    place_C = {"qr": C_qr}
+    n_place = {}
+    for kind, kw in place_kw.items():
+        C32, n_place[kind] = counted(
+            lambda kind=kind, kw=kw: spr_p.optimal_placement(kind, **kw))
+        s32 = points(kind, spr_p, C32)
+        s64 = points(kind, spr_64, spr_64.optimal_placement(kind, **kw))
+        s64_same = select64[kind](U32d)
+        o32, o64 = (objective[kind](U32np, sel) for sel in (s32, s64_same))
+        b32, b64 = (objective[kind](U64, sel) for sel in (s32, s64))
+        med, lo_t, hi_t = per_call_ms(
+            {0: lambda kind=kind, kw=kw: spr_p.optimal_placement(kind, **kw)},
+            reps=6, warmup=1)[0]
+        kernels, dtoh = trace_counts(
+            lambda kind=kind, kw=kw: spr_p.optimal_placement(kind, **kw))
+        log(f"  {kind}: {C32.shape[0]} sensor rows; on the fp32 model's "
+            f"basis (in float64) objective of the fp32 selection {o32:.9e}, "
+            f"of float64 arithmetic's {o64:.9e} (relative gap "
+            f"{(o64 - o32) / abs(o64):.3e}, shared sensors "
+            f"{len(set(s32.tolist()) & set(s64_same.tolist()))}/{len(s32)}); "
+            f"on the float64 model's basis: fp32 selection {b32:.9e}, "
+            f"float64 model's selection {b64:.9e} (relative gap "
+            f"{(b64 - b32) / abs(b64):.3e}, shared sensors "
+            f"{len(set(s32.tolist()) & set(s64.tolist()))}/{len(s32)}); "
+            f"wall per optimal_placement call median {med:.4f} ms (min "
+            f"{lo_t:.4f}, max {hi_t:.4f}; 6 calls, CUDA events); "
+            f"{'not measured' if kernels is None else kernels} device "
+            f"kernels and {dtoh} device-to-host copies per call (the JAX "
+            f"code reads {jax_reads[kind]}); qrcp launches {n_place[kind]}")
+        if not bool(torch.isfinite(C32).all()) or C32.shape[1] != 165258:
+            fail(f"the {kind} placement's C is not finite of width 165,258")
+        if not (o32 >= o64 or abs(o32 - o64) <= PLACE_OBJ_REL * abs(o64)):
+            fail(f"{kind}: fp32 objective {o32:.6e} against float64 "
+                 f"arithmetic's {o64:.6e} on the same basis")
+        if dtoh > jax_reads[kind]:
+            fail(f"{kind} read back {dtoh} times, the JAX code "
+                 f"{jax_reads[kind]}")
+        place_C[kind] = C32
+        if kind == "dg":
+            piv = s32[:14]
+            want = plain.qrcp_pivots(spr_p.Ur.T, 14).cpu().numpy()
+            log(f"  dg phase 1: pivots equal to the plain sweep on the same "
+                f"panel={bool(np.array_equal(piv, want))}, to the QR "
+                f"placement's={bool(np.array_equal(piv, rows_qr))}, "
+                f"csrc/qrcp.cu launches {n_place['dg']}")
+            if not np.array_equal(piv, want) or n_place["dg"] != 1:
+                fail("dg phase 1 is not one csrc/qrcp.cu launch bit-equal "
+                     "to the plain sweep")
+    log("  held-out gappy-POD NRMSE (4 test snapshots) by sensor set: "
+        + ", ".join(f"{kind} ({C.shape[0]} rows) {gappy_nrmse(C):.4e}"
+                    for kind, C in place_C.items()))
+    spr_p.train(C_qr)
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the shallow decoder (phase 17) ---------------------------------
+    log(f"phase 17: ShallowDecoder hidden {DEC_HIDDEN}, {DEC_EPOCHS} epochs, "
+        f"lr {DEC_LR} (docs/examples/decoder_example.py), on the QR "
+        f"placement's 14 sensors and on the VDG probes; fp32 against float64 "
+        f"from the same initial weights (held-out NRMSE within "
+        f"{DEC_FP32_SLACK:.0%}); DecoderSensor at batch {SERVE_BATCH}")
+    t_phase = time.perf_counter()
+    X64f = flag["X_train"].astype(np.float64)
+    for tag in ("qr", "vdg"):
+        C = place_C[tag]
+        rows = C.argmax(dim=1).cpu().numpy()
+        ys = [np.column_stack([flag["X_test"][rows, j], np.zeros(rows.size),
+                               rows // npts])
+              for j in range(flag["X_test"].shape[1])]
+        sizes = (C.shape[0],) + DEC_HIDDEN + (C.shape[1],)
+        p0 = dec_mod.init_params(sizes, 0, torch.float64, dev)
+        decs, dec_nr = {}, {}
+        for dt, X in ((torch.float32, flag["X_train"]), (torch.float64, X64f)):
+            d_ = ShallowDecoder(X, 9, flag["xyz"], hidden=DEC_HIDDEN)
+            d_.fit(C.to(dt), epochs=DEC_EPOCHS, lr=DEC_LR, params0=p0)
+            decs[dt] = d_
+            dec_nr[dt] = float(nrmse(d_.predict(ys).double(), Tf))
+        dec = decs[torch.float32]
+        X0 = ((torch.as_tensor(flag["X_train"], device=dev) - dec.X_cnt)
+              / dec.X_scl)
+        Y0 = C @ X0
+        p32 = [(W.float(), b.float()) for W, b in p0]
+        ep_ms = loop_ms(lambda: dec_mod._train(Y0.T, X0.T, p32, 100, DEC_LR,
+                                               1e-6), n=1, warmup=1,
+                        rounds=3) / 100
+        k_ep, dtoh_tr = trace_counts(
+            lambda: dec_mod._train(Y0.T, X0.T, p32, 10, DEC_LR, 1e-6))
+        sync_tr = host_syncs(
+            lambda: dec_mod._train(Y0.T, X0.T, p32, 10, DEC_LR, 1e-6))
+        sensor = DecoderSensor.from_decoder(dec).warmup()
+        Yd = torch.as_tensor(np.tile(flag["X_test"][rows].T, (13, 1))
+                             [:SERVE_BATCH], device=dev)
+        med, lo_t, hi_t = per_call_ms(
+            {0: lambda: sensor.predict_batch(Yd)}, reps=10, warmup=2)[0]
+        k_b, dtoh_b = trace_counts(lambda: sensor.predict_batch(Yd))
+        sync_b = host_syncs(lambda: sensor.predict_batch(Yd))
+        x_dec = dec.predict(ys)
+        x_srv = sensor.predict_batch(
+            torch.as_tensor(flag["X_test"][rows].T, device=dev))
+        srv_err = float((x_srv.T - x_dec).abs().max() / x_dec.abs().max())
+        loss = dec.loss_history.cpu().numpy()
+        log(f"  {tag} ({C.shape[0]} sensors): held-out NRMSE fp32 "
+            f"{dec_nr[torch.float32]:.4e}, float64 "
+            f"{dec_nr[torch.float64]:.4e}; final loss fp32 {loss[-1]:.4e}; "
+            f"training {ep_ms:.4f} ms per epoch (100 epochs, CUDA events), "
+            f"{'not measured' if k_ep is None else f'{k_ep / 10:.1f}'} "
+            f"kernels per epoch, {dtoh_tr} device-to-host copies and "
+            f"{sync_tr} synchronizing calls in 10 epochs; DecoderSensor "
+            f"batch {SERVE_BATCH}: {med / SERVE_BATCH:.6f} ms per frame "
+            f"(batch median {med:.4f} ms, min {lo_t:.4f}, max {hi_t:.4f}), "
+            f"{k_b} kernels per batch, {dtoh_b} device-to-host copies, "
+            f"{sync_b} synchronizing calls; served vs predict "
+            f"{srv_err:.3e} (≤ {DEC_SERVE_REL})")
+        if not np.all(np.isfinite(loss)) or not np.isfinite(
+                dec_nr[torch.float32]):
+            fail(f"decoder ({tag}) training is not finite")
+        if abs(dec_nr[torch.float32] - dec_nr[torch.float64]) \
+                > DEC_FP32_SLACK * dec_nr[torch.float64]:
+            fail(f"decoder ({tag}) fp32 NRMSE {dec_nr[torch.float32]:.4e} "
+                 f"against float64 {dec_nr[torch.float64]:.4e}")
+        if dtoh_tr or sync_tr:
+            fail(f"decoder ({tag}) training read back to the host")
+        if dtoh_b or sync_b:
+            fail(f"DecoderSensor ({tag}) batch read back to the host")
+        if not srv_err <= DEC_SERVE_REL:
+            fail(f"DecoderSensor ({tag}) {srv_err:.3e} from predict")
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the temporal layer (phase 18) ----------------------------------
+    log("phase 18: DMD and DynamicSensor on the docs/examples/"
+        "dynamics_example.py series (50,000 points × 2 features, 60 + 40 "
+        "snapshots, latent rank 6, σ = 0.5·std), then DynamicSensor.from_spr "
+        f"on the flagship SPR at batch {SERVE_BATCH}, σ = 0.05")
+    t_phase = time.perf_counter()
+    Xs_train, Xs_test, xyz_s, rng_s = dynamics_series()
+    dmds = {}
+    for key, X, n_modes in (("fp32", Xs_train, 8),
+                            ("float64", Xs_train.astype(np.float64), 8)):
+        dmd = DMD(X, 2, xyz_s)
+        dmd.fit(dt=1.0, select_modes="number", n_modes=n_modes)
+        dmds[key] = dmd
+    # the float64 fit at the rank the fp32 fit kept: truncating at another
+    # rank moves the dominant eigenvalues too, whatever the precision
+    dmd = DMD(Xs_train.astype(np.float64), 2, xyz_s)
+    dmd.fit(dt=1.0, select_modes="number", n_modes=dmds["fp32"].r)
+    dmds["float64, fp32's rank"] = dmd
+    top = {key: np.sort_complex(d_.eigs[np.argsort(-np.abs(d_.amplitudes))
+                                        [:6]])
+           for key, d_ in dmds.items()}
+    eig_err = float(np.max(np.abs(top["fp32"]
+                                  - top["float64, fp32's rank"])))
+    eig_err_8 = float(np.max(np.abs(top["fp32"] - top["float64"])))
+    fc = dmds["fp32"].forecast_horizon(10)
+    fc_nr = float(nrmse(fc.double(), torch.as_tensor(Xs_test[:, :10],
+                                                     device=dev)))
+    log(f"  DMD n_modes = 8: ranks fp32 {dmds['fp32'].r}, float64 "
+        f"{dmds['float64'].r}; the 6 largest-amplitude eigenvalues, fp32 "
+        f"against float64 at fp32's rank max|Δλ| {eig_err:.3e} (≤ "
+        f"{DMD_EIG_ABS}), against float64 at its own rank {eig_err_8:.3e}; "
+        f"fp32 10-step forecast NRMSE {fc_nr:.4f} (the example's bar 0.2)")
+    if not eig_err <= DMD_EIG_ABS:
+        fail(f"fp32 DMD eigenvalues {eig_err:.3e} from float64")
+    if not fc_nr < 0.2:
+        fail(f"DMD forecast NRMSE {fc_nr:.4f}")
+    spr_d = SPR(Xs_train, 2, xyz_s)
+    spr_d.fit(select_modes="number", n_modes=6)
+    C_d, n_qr18 = counted(lambda: spr_d.optimal_placement())
+    spr_d.train(C_d)
+    rows_d = C_d.argmax(dim=1).cpu().numpy()
+    Y_clean = Xs_test[rows_d, :].T
+    sig_d = 0.5 * np.std(Y_clean, axis=0)
+    Y_noisy = Y_clean + rng_s.standard_normal(Y_clean.shape) * sig_d[None, :]
+    S_d = np.broadcast_to(sig_d, Y_clean.shape)
+    dyn = DynamicSensor.from_spr(spr_d).warmup(batch=Y_noisy.shape[0])
+    static = SoftSensor.from_spr(spr_d).warmup()
+    Xt_d = torch.as_tensor(Xs_test, device=dev)
+    err_kf = float(nrmse(dyn.filter_batch(Y_noisy, S_d)[0].T.double(), Xt_d))
+    err_sm = float(nrmse(dyn.smooth_batch(Y_noisy, S_d)[0].T.double(), Xt_d))
+    err_st = float(nrmse(static.predict_batch(Y_noisy, S_d)[0].T.double(),
+                         Xt_d))
+    log(f"  series: NRMSE under 50 % sensor noise filtered {err_kf:.4f}, "
+        f"smoothed {err_sm:.4f}, memoryless SoftSensor {err_st:.4f} "
+        f"({err_st / err_kf:.2f}× better filtered; the example's bar "
+        f"filtered < 0.8 × memoryless); qrcp launches {n_qr18}")
+    if not err_kf < 0.8 * err_st:
+        fail(f"the filter ({err_kf:.4f}) does not beat the memoryless "
+             f"solve ({err_st:.4f})")
+    if n_qr18 != 1:
+        fail(f"the series' QR placement launched csrc/qrcp.cu {n_qr18} times")
+    k32 = DynamicSensor.from_spr(spr_p).warmup(batch=SERVE_BATCH)
+    k64 = DynamicSensor.from_spr(spr_p, dtype=torch.float64)
+    Yk = torch.as_tensor(np.tile(flag["X_test"][rows_qr].T, (13, 1))
+                         [:SERVE_BATCH], device=dev)
+    Sk = torch.full_like(Yk, 0.05)
+    for method in ("filter_batch", "smooth_batch"):
+        fn = getattr(k32, method)
+        x32 = fn(Yk, Sk)[0]
+        x64 = getattr(k64, method)(Yk.double(), Sk.double())[0]
+        sync()
+        f_err = float((x32.double() - x64).abs().max()
+                      / (x64.max() - x64.min()))
+        med, lo_t, hi_t = per_call_ms({0: lambda: fn(Yk, Sk)}, reps=10,
+                                      warmup=2)[0]
+        k_b, dtoh_b = trace_counts(lambda: fn(Yk, Sk))
+        sync_b = host_syncs(lambda: fn(Yk, Sk))
+        log(f"  flagship {method}: {med / SERVE_BATCH:.5f} ms per frame "
+            f"(batch median {med:.4f} ms, min {lo_t:.4f}, max {hi_t:.4f}; "
+            f"10 batches, CUDA events); "
+            f"{'not measured' if k_b is None else f'{k_b / SERVE_BATCH:.1f}'}"
+            f" kernels per frame ({k_b} per batch), {dtoh_b} device-to-host "
+            f"copies, {sync_b} synchronizing calls; fp32 vs float64 fields "
+            f"max|Δ| / float64 range {f_err:.3e} (≤ {KF_FIELD_REL})")
+        if not bool(torch.isfinite(x32).all()) or tuple(x32.shape) != (
+                SERVE_BATCH, 165258):
+            fail(f"{method} fields are not finite of shape (50, 165,258)")
+        if dtoh_b or sync_b:
+            fail(f"a DynamicSensor {method} batch read back to the host")
+        if not f_err <= KF_FIELD_REL:
+            fail(f"fp32 {method} fields {f_err:.3e} from float64")
+    log(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    for r_ in records:
+        if r_["name"] == "qrcp_pivots_cuda[flagship]":
+            r_["launches"] += n_qr16 + n_place["dg"] + n_qr18
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -11,13 +11,19 @@ physics-informed loss.  Multifidelity: ``CoKriging`` aligns two POD
 fidelities and fits recursive co-kriging models (``MultiFiCoKriging``)
 per latent dimension, their θ searches running the same kernel.  Serving
 packages a model for streaming inference on the card (``SoftSensor``,
-``GPRSensor``, ``CoKrigingSensor``), with the box-constrained ADMM solver
-(``linalg/boxls.py``) behind the constrained variants.  Module names, public
+``GPRSensor``, ``CoKrigingSensor``, ``DecoderSensor``, and the
+Kalman-filtering ``DynamicSensor``), with the box-constrained ADMM solver
+(``linalg/boxls.py``) behind the constrained variants.  The other
+placements (``gem``, ``dg``, ``vdg``) and the shallow decoder
+(``ShallowDecoder``) sit beside the QR placement, and ``DMD`` analyses a
+time-ordered snapshot series.  Module names, public
 function names and array layouts follow ``openmeasure_tpu`` so each piece
 has an obvious counterpart.
 
     from openmeasure_torch import ROM, SPR, GPR, PIGPR, CoKriging
     from openmeasure_torch import SoftSensor, GPRSensor, CoKrigingSensor
+    from openmeasure_torch import ShallowDecoder, DecoderSensor
+    from openmeasure_torch import DMD, DynamicSensor
     from openmeasure_torch.pipelines import (spr_end_to_end, gpr_end_to_end,
                                              mfk_end_to_end)
 
@@ -41,17 +47,19 @@ from .sensing.spr import SPR  # noqa: E402
 from .gp.gpr import GPR, PIGPR  # noqa: E402
 from .multifi.cokriging import CoKriging  # noqa: E402
 from .multifi.mfk import MultiFiCoKriging  # noqa: E402
-from .serving import CoKrigingSensor, GPRSensor, SoftSensor  # noqa: E402
+from .sensing.decoder import ShallowDecoder  # noqa: E402
+from .dynamics.dmd import DMD  # noqa: E402
+from .serving import (CoKrigingSensor, DecoderSensor, DynamicSensor,  # noqa: E402
+                      GPRSensor, SoftSensor)
 
 __all__ = ["ROM", "SPR", "GPR", "PIGPR", "CoKriging", "MultiFiCoKriging",
-           "SoftSensor", "GPRSensor", "CoKrigingSensor"]
+           "ShallowDecoder", "DMD", "SoftSensor", "GPRSensor",
+           "CoKrigingSensor", "DecoderSensor", "DynamicSensor"]
 __version__ = "0.1.0"
 
 # Names of the JAX package's top level that later slices of the port bring
 # over, each with the ROADMAP.md §A item that ports it.
 _NOT_YET_PORTED = {
-    "ShallowDecoder": "A.11", "DecoderSensor": "A.11",
-    "DMD": "A.13", "DynamicSensor": "A.13",
     "StreamingROM": "A.14", "StreamingSPR": "A.14", "StreamingGPR": "A.14",
     "StreamingPIGPR": "A.14", "StreamingDMD": "A.14",
 }

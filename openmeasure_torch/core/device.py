@@ -41,3 +41,20 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def to_numpy_once(*tensors) -> list:
+    """Host numpy copies of several tensors of one device in ONE
+    device-to-host copy: each is viewed as bytes, the bytes are
+    concatenated on the device and read back together, then split and
+    viewed as their dtypes again (bit for bit).  Counterpart of the JAX
+    package's single ``jax.device_get`` of a tuple of results."""
+    flat = [t.detach().contiguous().reshape(-1) for t in tensors]
+    raw = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+    out, at = [], 0
+    for t, f in zip(tensors, flat):
+        nbytes = f.numel() * f.element_size()
+        np_dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(raw[at:at + nbytes].view(np_dtype).reshape(tuple(t.shape)))
+        at += nbytes
+    return out

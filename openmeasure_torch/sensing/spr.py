@@ -17,9 +17,14 @@ A σ=0 entry inside an otherwise-weighted measurement vector receives the
 largest finite weight of that vector (the JAX package's documented
 deviation from the reference's literal 1/0).
 
-Not ported in this slice, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: the ``gem``/``dg``/``vdg`` placements (A.11),
-``update_basis`` (A.14).
+The other placements: ``'gem'`` (greedy entropy, :mod:`.gem`), ``'dg'``
+(D-optimal greedy, :mod:`.dg`, whose phase 1 is the QRCP kernel on the
+card) and ``'vdg'`` (vector probes, :mod:`.vector`).  Each returns C as a
+tensor on the model's device; the selected indices come back to the host
+in one read.
+
+Not ported in this slice, raising ``NotImplementedError`` naming its
+ROADMAP.md item: ``update_basis`` (A.14).
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ from ..linalg import boxls as _boxls
 from ..linalg import qrcp as _qrcp
 from ..linalg.qrcp_cuda import qrcp_pivots_auto
 from ..rom.rom import ROM, apply_sampling, scale_measurement_values
+from .dg import dg_select
+from .gem import gem_select
+from .vector import vector_dg_select, vector_onehot
 
 
 class SPR(ROM):
@@ -80,6 +88,23 @@ class SPR(ROM):
             self._needs_retrain = True
         self._cols_cache = None
 
+    def gem(self, Ur, n_sensors, mask, d_min, verbose):
+        xyz_tiled = np.tile(np.asarray(self.xyz), (self.n_features, 1))
+        return gem_select(Ur, xyz_tiled, n_sensors, mask, d_min, verbose)
+
+    def _onehot_rows(self, P, n):
+        """One-hot C (len(P), n) in the basis's dtype on its device."""
+        C = torch.zeros((P.size, n), dtype=self.Ur.dtype, device=self.device)
+        C[torch.arange(P.size, device=self.device),
+          as_tensor(P, self.device)] = 1.0
+        return C
+
+    def _zero_masked_rows(self, mask):
+        keep = as_tensor(np.asarray(mask, dtype=bool), self.device)
+        self.Ur = torch.where(keep[:, None], self.Ur,
+                              torch.zeros((), dtype=self.Ur.dtype,
+                                          device=self.device))
+
     def optimal_placement(self, calc_type: str = "qr", n_sensors: int = 10,
                           mask=None, d_min: float = 0.0,
                           verbose: bool = False, config=None):
@@ -88,7 +113,14 @@ class SPR(ROM):
 
         ``calc_type='qr'``: first-r column pivots of Urᵀ (s = r).  A region
         ``mask`` (n,) zeroes the excluded rows of Ur destructively, as in
-        the reference.  ``config``
+        the reference.  ``'gem'``: greedy entropy maximization of
+        ``n_sensors`` rows at least ``d_min`` apart.  ``'dg'``:
+        determinant-based greedy, D-optimal for any ``n_sensors`` (more
+        sensors than modes included); the mask zeroes Ur's rows as for
+        ``'qr'``.  ``'vdg'``: ``n_sensors`` probes each measuring all
+        ``n_features`` at one point (C gets n_sensors·n_features rows,
+        sensor-major; ``self.sensor_points`` holds the points); the mask
+        restricts the points without zeroing the basis.  ``config``
         (:class:`openmeasure_torch.core.config.PlacementConfig`) overrides
         calc_type/n_sensors/d_min/verbose when given."""
         if config is not None:
@@ -96,23 +128,29 @@ class SPR(ROM):
             n_sensors = config.n_sensors
             d_min = config.d_min
             verbose = config.verbose
-        if calc_type != "qr":
-            if calc_type in ("gem", "dg", "vdg"):
-                raise NotImplementedError(
-                    f"optimal_placement(calc_type={calc_type!r}) is not "
-                    "ported yet (ROADMAP.md §A item 11).")
-            raise NotImplementedError(
-                "The sensor selection method has not been implemented yet")
         n = self.X.shape[0]
-        if mask is not None:
-            keep = as_tensor(np.asarray(mask, dtype=bool), self.device)
-            self.Ur = torch.where(keep[:, None], self.Ur,
-                                  torch.zeros((), dtype=self.Ur.dtype,
-                                              device=self.device))
-        # Ur.T is an (r, n) view of the (n, r) basis: the kernel reads it
-        # through its strides, no copy
-        pivots = qrcp_pivots_auto(self.Ur.T, self.r)
-        return _qrcp.pivots_to_onehot(pivots, n).to(self.Ur.dtype)
+        if calc_type == "qr":
+            if mask is not None:
+                self._zero_masked_rows(mask)
+            # Ur.T is an (r, n) view of the (n, r) basis: the kernel reads
+            # it through its strides, no copy
+            pivots = qrcp_pivots_auto(self.Ur.T, self.r)
+            return _qrcp.pivots_to_onehot(pivots, n).to(self.Ur.dtype)
+        if calc_type == "gem":
+            return self._onehot_rows(
+                self.gem(self.Ur, n_sensors, mask, d_min, verbose), n)
+        if calc_type == "dg":
+            if mask is not None:
+                self._zero_masked_rows(mask)
+            return self._onehot_rows(dg_select(self.Ur, n_sensors, mask), n)
+        if calc_type == "vdg":
+            P = vector_dg_select(self.Ur, self.n_features, n_sensors, mask,
+                                 xyz=self.xyz, d_min=d_min)
+            self.sensor_points = P
+            return vector_onehot(P, self.n_features, self.n_points,
+                                 dtype=self.Ur.dtype, device=self.device)
+        raise NotImplementedError(
+            "The sensor selection method has not been implemented yet")
 
     # ------------------------------------------------------------------ #
     # Train

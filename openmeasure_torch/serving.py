@@ -1,5 +1,6 @@
 """Low-latency soft-sensor serving (port of ``openmeasure_tpu/serving.py``:
-``SoftSensor``, ``GPRSensor`` and ``CoKrigingSensor``).
+``SoftSensor``, ``GPRSensor``, ``CoKrigingSensor``, ``DecoderSensor`` and
+``DynamicSensor``).
 
 A fitted model is packaged for streaming inference: its state lives on the
 card, and one call runs a whole batch of measurements — scaling, the
@@ -17,14 +18,22 @@ the reconstruction — with no read back to the host::
     csensor = CoKrigingSensor.from_cokriging(ck)   # ck after align + fit
     Y_pred, Y_mse = csensor(X_test)                # (q, d) -> (n, q)
 
+    dsensor = DecoderSensor.from_decoder(dec)      # dec after fit(C)
+    fields = dsensor.predict_batch(Y)              # (b, s) -> (b, n)
+
+    ksensor = DynamicSensor.from_spr(spr)          # time-ordered spr
+    fields, A, var = ksensor.filter_batch(Y, S)    # (K, s) series
+
 As in the JAX package, the model state is a dict passed to module-level
 functions (``_predict_math``, ``_gpr_predict_math``,
-``_ck_predict_math``), not closed over, so
+``_ck_predict_math``, ``_decoder_predict_kernel``, ``_kf_serve_series``,
+``_kf_smooth_series``), not closed over, so
 every sensor of one shape runs the same code on its own state.  Where the
 JAX package ``vmap``s the single-request math over a batch, the math here
 takes the batch as a leading axis.  The constrained solves run a fixed
 iteration budget (``tol = 0``): every request does the same work, and the
-budget is the accuracy knob.
+budget is the accuracy knob.  The Kalman filter's scan over frames is a
+Python loop over device tensors: a batch of K frames reads nothing back.
 
 Sharding the state over several cards (``shard``, ``shard_state_rows``)
 and loading ``.npz`` checkpoints (``load``) come with ROADMAP.md §A item
@@ -42,17 +51,21 @@ where the JAX package casts to its ambient default float.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from .core.device import DeviceLike, as_tensor, resolve_device, to_numpy
+from .dynamics.kalman import (estimate_process_noise, fit_reduced_operator,
+                              kalman_filter, kalman_smoother,
+                              stationary_covariance)
 from .gp.exact_gp import tree_map
 from .gp.gpr import posterior_all_modes
 from .linalg import boxls as _boxls
 from .multifi.mfk import predict_levels_batch
+from .sensing.decoder import _forward as _decoder_forward
 
 _ITEM_14 = "(ROADMAP.md §A item 14: sharding and checkpoints)"
 
@@ -579,3 +592,365 @@ class CoKrigingSensor:
         if Ur.device.type == "cuda":
             torch.cuda.synchronize(Ur.device)
         return self
+
+
+# ---------------------------------------------------------------------- #
+# Shallow-decoder serving: sensors -> field through the trained MLP
+# ---------------------------------------------------------------------- #
+
+def _decoder_predict_kernel(state, Y_values):
+    """Scaled-sensor MLP forward + unscale.  Y_values (b, s) -> (b, n)."""
+    y0 = (Y_values - state["cnt_sensors"][None, :]) \
+        / state["scl_sensors"][None, :]
+    X0 = _decoder_forward(state["layers"], y0)
+    return X0 * state["X_scl"][None, :] + state["X_cnt"][None, :]
+
+
+class DecoderSensor:
+    """A packaged shallow-decoder soft sensor
+    (:class:`openmeasure_torch.sensing.decoder.ShallowDecoder`): sensors →
+    full field, one MLP forward per batch, state on ``device`` (``None``
+    means the card) in ``dtype``.
+
+    No coefficient or σ outputs: the decoder reconstructs outside the POD
+    span and has no closed-form error propagation (use
+    :class:`SoftSensor` when σ is needed)."""
+
+    def __init__(self, params, cnt_sensors, scl_sensors, X_cnt, X_scl,
+                 dtype=torch.float32, device: DeviceLike = None):
+        self.device = resolve_device(device)
+
+        def t(x):
+            return as_tensor(x, self.device, dtype=dtype)
+
+        layers = tuple((t(W), t(b)) for W, b in params)
+        self.s = int(layers[0][0].shape[0])
+        self.n = int(layers[-1][0].shape[1])
+        self._state = {
+            "layers": layers,
+            "cnt_sensors": t(cnt_sensors).reshape(-1),
+            "scl_sensors": t(scl_sensors).reshape(-1),
+            "X_cnt": t(X_cnt).reshape(-1),
+            "X_scl": t(X_scl).reshape(-1),
+        }
+
+    @classmethod
+    def from_decoder(cls, dec, feature_ids=None,
+                     dtype=torch.float32) -> "DecoderSensor":
+        """Package a fitted :class:`ShallowDecoder` on its device.
+        ``feature_ids`` as in :meth:`SoftSensor.from_spr` (needed for a C
+        that is not one-hot)."""
+        if not hasattr(dec, "params"):
+            raise ValueError("DecoderSensor.from_decoder needs a fitted "
+                             "decoder: call dec.fit(C) first.")
+        X_cnt = to_numpy(dec.X_cnt)[:, 0]
+        X_scl = to_numpy(dec.X_scl)[:, 0]
+        cnt_sensors, scl_sensors = _measurement_scaling(
+            dec.C, X_cnt, X_scl, dec.n_points, feature_ids)
+        return cls(dec.params, cnt_sensors, scl_sensors, X_cnt, X_scl,
+                   dtype, device=dec.device)
+
+    @classmethod
+    def load(cls, *args, **kwargs):
+        raise NotImplementedError(
+            f"DecoderSensor.load (.npz checkpoints) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def shard(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"DecoderSensor.shard (multi-card serving) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def __call__(self, y_values) -> torch.Tensor:
+        """One request: sensor values (s,) → field (n,)."""
+        y = as_tensor(y_values, self.device,
+                      dtype=self._state["X_cnt"].dtype)
+        return _decoder_predict_kernel(self._state, y[None, :])[0]
+
+    def predict_batch(self, Y_values) -> torch.Tensor:
+        """A batch (b, s) → fields (b, n) in one call, with no read back
+        to the host."""
+        Y = as_tensor(Y_values, self.device, dtype=self._state["X_cnt"].dtype)
+        if Y.ndim != 2 or Y.shape[1] != self.s:
+            raise ValueError(
+                f"Y_values must be (batch, s={self.s}); got "
+                f"{tuple(Y.shape)}.")
+        return _decoder_predict_kernel(self._state, Y)
+
+    def warmup(self) -> "DecoderSensor":
+        self(torch.zeros((self.s,), device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+
+# ---------------------------------------------------------------------- #
+# Kalman-filtering soft sensor (reduced-coefficient dynamics)
+# ---------------------------------------------------------------------- #
+
+# effective measurement variance of a MISSING reading: the Kalman gain is
+# ~1e-12, a pure prediction step, and the SPD innovation solve stays
+# well-conditioned in fp32
+_KF_MISSING_R = 1e12
+
+
+def _kf_scale_inputs(state, Y_values, Y_sigma):
+    """Scale a measurement series and build the per-step noise variances.
+    A non-finite value or σ (NaN, ±inf) marks a MISSING reading: its value
+    becomes 0 and its variance :data:`_KF_MISSING_R`, so the filter
+    ignores it instead of letting it poison the series."""
+    miss = ~(torch.isfinite(Y_values) & torch.isfinite(Y_sigma))
+    Yv = torch.where(miss, torch.zeros_like(Y_values), Y_values)
+    Y0 = (Yv - state["cnt_sensors"][None, :]) / state["scl_sensors"][None, :]
+    R = torch.square(torch.where(miss, torch.zeros_like(Y_sigma), Y_sigma)
+                     / state["scl_sensors"][None, :])
+    # variance floor: with more sensors than modes and σ = 0, Θ P Θᵀ is
+    # rank-deficient; the floor keeps the SPD solve well-posed
+    R = torch.maximum(R, state["r_floor"])
+    R = torch.where(miss, torch.full_like(R, _KF_MISSING_R), R)
+    return Y0, R
+
+
+def _kf_reconstruct(state, A_coef):
+    return (A_coef @ state["Ur"].T) * state["X_scl"][None, :] \
+        + state["X_cnt"][None, :]
+
+
+def _kf_serve_series(state, Y_values, Y_sigma, a0, P0):
+    """Kalman filtering of a measurement series in scaled space and the
+    field reconstruction, with no read back to the host.  Returns (fields
+    (K, n), means (K, r), variances (K, r), (a_K, P_K), rejected (K, s))."""
+    Y0, R = _kf_scale_inputs(state, Y_values, Y_sigma)
+    A_filt, var, carry, rej = kalman_filter(
+        state["A"], state["Q"], state["Theta"], a0, P0, Y0, R,
+        gate=state["gate"], return_rejected=True)
+    return _kf_reconstruct(state, A_filt), A_filt, var, carry, rej
+
+
+def _kf_smooth_series(state, Y_values, Y_sigma, a0, P0):
+    """The RTS-smoothed variant of :func:`_kf_serve_series`: every frame
+    conditions on the whole series.  The carry is the forward filter's
+    final state."""
+    Y0, R = _kf_scale_inputs(state, Y_values, Y_sigma)
+    A_sm, var, carry, rej = kalman_smoother(
+        state["A"], state["Q"], state["Theta"], a0, P0, Y0, R,
+        gate=state["gate"], return_rejected=True)
+    return _kf_reconstruct(state, A_sm), A_sm, var, carry, rej
+
+
+class DynamicSensor:
+    """Kalman-filtering soft sensor over a TIME SERIES of measurements.
+
+    Packages a trained, time-ordered :class:`openmeasure_torch.SPR` with
+    reduced-coefficient dynamics ``a_{k+1} = A a_k + w`` identified from
+    the training coefficients, and filters incoming noisy measurements
+    against the gappy model ``y0 = Θ a + v`` the static sensor solves per
+    frame.  State on ``device`` (``None`` means the card) in ``dtype``::
+
+        sensor = DynamicSensor.from_spr(spr)
+        fields, A, var = sensor.filter_batch(Y, Y_sigma)   # series (K, s)
+        x_t, a_t, var_t = sensor.step(y_t, sigma_t)        # streaming
+
+    :meth:`step` advances the internal (a, P) carry; :meth:`filter_batch`
+    starts from the stored prior unless ``persist=True`` (then it starts
+    from and rolls forward the carry).  NaN (or infinite) readings mark
+    dropped sensors; ``gate=g`` rejects entries whose innovation exceeds
+    g predicted standard deviations.  ``last_rejected`` holds the most
+    recent call's (K, s) rejection mask."""
+
+    def __init__(self, Ur, Theta, cnt_sensors, scl_sensors, X_cnt, X_scl,
+                 A, Q, a0, P0, dtype=torch.float32, r_floor: float = 1e-6,
+                 gate: Optional[float] = None, device: DeviceLike = None):
+        self.device = resolve_device(device)
+
+        def t(x):
+            return as_tensor(x, self.device, dtype=dtype)
+
+        self.Ur = t(Ur)
+        self.Theta = t(Theta)
+        self.r = int(self.Theta.shape[1])
+        self.s = int(self.Theta.shape[0])
+        self.n = int(self.Ur.shape[0])
+        if gate is not None and not float(gate) > 0:
+            raise ValueError(f"gate must be a positive number of predicted "
+                             f"standard deviations; got {gate}.")
+        self._state = {
+            "Ur": self.Ur, "Theta": self.Theta,
+            "cnt_sensors": t(cnt_sensors), "scl_sensors": t(scl_sensors),
+            "X_cnt": t(X_cnt).reshape(-1), "X_scl": t(X_scl).reshape(-1),
+            "A": t(A), "Q": t(Q),
+            # squared: compared against variances
+            "r_floor": t(float(r_floor) ** 2),
+            # innovation-gating threshold (inf = disabled)
+            "gate": t(float("inf") if gate is None else float(gate)),
+        }
+        self._a0 = t(a0)
+        self._P0 = t(P0)
+        self.last_rejected = None
+        self.reset()
+
+    def _filter(self, Yv, Ys, a0, P0):
+        return _kf_serve_series(self._state, Yv, Ys, a0, P0)
+
+    def _smooth(self, Yv, Ys, a0, P0):
+        return _kf_smooth_series(self._state, Yv, Ys, a0, P0)
+
+    @classmethod
+    def from_spr(cls, spr, ridge: float = 0.0, q_floor: float = 1e-8,
+                 feature_ids=None, dtype=torch.float32,
+                 r_floor: float = 1e-6,
+                 gate: Optional[float] = None) -> "DynamicSensor":
+        """Package a trained SPR whose snapshots were TIME-ORDERED with a
+        uniform sampling interval, on the model's device.  A, Q and P0
+        are identified on the host in float64 from the fitted ``Ar``; the
+        filter starts at the last training coefficient with the identified
+        model's stationary covariance (a scaled Q for unstable
+        dynamics)."""
+        if getattr(spr, "Theta", None) is None:
+            raise ValueError(
+                "DynamicSensor.from_spr needs a trained SPR: call "
+                "spr.fit() and spr.train() first.")
+        if not hasattr(spr, "Ar"):
+            raise ValueError(
+                "DynamicSensor.from_spr needs the fitted coefficients Ar "
+                "(fit with the standard POD path).")
+        Ar = to_numpy(spr.Ar).astype(np.float64)
+        A = fit_reduced_operator(Ar, ridge=ridge)
+        Q = estimate_process_noise(A, Ar, floor_rel=q_floor)
+        P0 = stationary_covariance(A, Q)
+        a0 = Ar[-1]
+        X_cnt = to_numpy(spr.X_cnt)[:, 0]
+        X_scl = to_numpy(spr.X_scl)[:, 0]
+        cnt_sensors, scl_sensors = _measurement_scaling(
+            spr.C, X_cnt, X_scl, spr.n_points, feature_ids)
+        return cls(spr.Ur, spr.Theta, cnt_sensors, scl_sensors,
+                   X_cnt, X_scl, A, Q, a0, P0, dtype=dtype,
+                   r_floor=r_floor, gate=gate, device=spr.device)
+
+    @classmethod
+    def load(cls, *args, **kwargs):
+        raise NotImplementedError(
+            f"DynamicSensor.load (.npz checkpoints) is not ported yet "
+            f"{_ITEM_14}.")
+
+    def shard(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"DynamicSensor.shard (multi-card serving) is not ported yet "
+            f"{_ITEM_14}.")
+
+    # ------------------------------------------------------------------ #
+
+    def _coerce(self, Y_values, Y_sigma):
+        Y_values = as_tensor(Y_values, self.device, dtype=self.Ur.dtype)
+        if Y_values.ndim != 2 or Y_values.shape[1] != self.s:
+            raise ValueError(
+                f"measurement series must be (frames, s={self.s}); got "
+                f"{tuple(Y_values.shape)}.")
+        if Y_sigma is None:
+            Y_sigma = torch.zeros_like(Y_values)
+        else:
+            Y_sigma = torch.broadcast_to(
+                as_tensor(Y_sigma, self.device, dtype=self.Ur.dtype),
+                Y_values.shape)
+        return Y_values, Y_sigma
+
+    def filter_batch(self, Y_values, Y_sigma=None, persist: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Filter a (K, s) measurement series: (fields (K, n), coefficient
+        means (K, r), coefficient variances (K, r)), with no read back to
+        the host.  ``persist=True`` continues from, and advances, the
+        streaming carry instead of the stored prior."""
+        Y_values, Y_sigma = self._coerce(Y_values, Y_sigma)
+        a, P = (self._a, self._P) if persist else (self._a0, self._P0)
+        X, A_filt, var, carry, rej = self._filter(Y_values, Y_sigma, a, P)
+        self.last_rejected = rej
+        if persist:
+            self._a, self._P = carry
+        return X, A_filt, var
+
+    def smooth_batch(self, Y_values, Y_sigma=None, persist: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """RTS-smooth a recorded (K, s) series: every frame conditions on
+        all K measurements.  Returns as :meth:`filter_batch`;
+        ``persist=True`` advances the carry with the FORWARD filter's final
+        state, so a later :meth:`step` continues as if the series had been
+        filtered."""
+        Y_values, Y_sigma = self._coerce(Y_values, Y_sigma)
+        a, P = (self._a, self._P) if persist else (self._a0, self._P0)
+        X, A_sm, var, carry, rej = self._smooth(Y_values, Y_sigma, a, P)
+        self.last_rejected = rej
+        if persist:
+            self._a, self._P = carry
+        return X, A_sm, var
+
+    def forecast(self, horizon: int, persist: bool = False,
+                 from_carry: Optional[bool] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Predict the next ``horizon`` frames with NO measurements: the
+        rollout ``a_{k+1} = A a_k`` with variances growing by ``P → A P Aᵀ
+        + Q``, as the filter over an all-missing series.
+
+        ``from_carry=True`` starts from the live streaming carry,
+        ``False`` from the packaged prior; the default follows
+        ``persist``.  ``persist=True`` writes the rolled-forward state back
+        to the carry."""
+        q = int(horizon)
+        if q < 1:
+            raise ValueError(f"horizon must be >= 1; got {horizon}.")
+        if from_carry is None:
+            from_carry = persist
+        Y, Ys = self._coerce(torch.full((q, self.s), float("nan"),
+                                        dtype=self.Ur.dtype,
+                                        device=self.device), None)
+        a, P = (self._a, self._P) if from_carry else (self._a0, self._P0)
+        X, A_f, var, carry, _rej = self._filter(Y, Ys, a, P)
+        # not written to last_rejected: the synthetic all-missing series
+        # never gates and would blank the last real call's health signal
+        if persist:
+            self._a, self._P = carry
+        return X, A_f, var
+
+    def step(self, y_values, y_sigma=None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One streaming frame: advances the carry and returns (field
+        (n,), coefficients (r,), coefficient variances (r,))."""
+        y_values = as_tensor(y_values, self.device, dtype=self.Ur.dtype)
+        if tuple(y_values.shape) != (self.s,):
+            raise ValueError(
+                f"y_values must be (s={self.s},); got "
+                f"{tuple(y_values.shape)}.")
+        sig = (torch.zeros((1, self.s), dtype=self.Ur.dtype,
+                           device=self.device) if y_sigma is None
+               else torch.broadcast_to(
+                   as_tensor(y_sigma, self.device, dtype=self.Ur.dtype),
+                   (1, self.s)))
+        X, A_filt, var, carry, rej = self._filter(y_values[None, :], sig,
+                                                  self._a, self._P)
+        self.last_rejected = rej
+        self._a, self._P = carry
+        return X[0], A_filt[0], var[0]
+
+    def reset(self) -> "DynamicSensor":
+        """Reset the streaming carry to the packaged prior."""
+        self._a, self._P = self._a0, self._P0
+        return self
+
+    def warmup(self, batch: int = 1) -> "DynamicSensor":
+        """Run the filter and the smoother once on a series of ``batch``
+        frames, so the first real call finds the library handles and
+        workspaces made."""
+        Y = torch.zeros((batch, self.s), dtype=self.Ur.dtype,
+                        device=self.device)
+        self._filter(Y, Y, self._a0, self._P0)
+        self._smooth(Y, Y, self._a0, self._P0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def rejected_fraction(self) -> float:
+        """Fraction of measurement entries gated as outliers in the most
+        recent filter/smooth/step call (0.0 when gating is disabled); one
+        host read."""
+        if getattr(self, "last_rejected", None) is None:
+            return 0.0
+        return float(torch.mean(self.last_rejected.to(torch.float32)))

@@ -1,14 +1,19 @@
 """Fitted state carried across from the JAX package's SPR, GPR and
 CoKriging.
 
-:func:`spr_from_numpy`, :func:`gpr_from_numpy` and
-:func:`cokriging_from_numpy` are the port's counterpart of loading
-weights: each builds a fitted (and trained) port model from the JAX
-model's attributes read out as numpy arrays, under the key names of the
-JAX checkpoint format (``openmeasure_tpu/utils/checkpoint.py:69-107``:
-attribute names, the GP parameters flattened as ``params/<path>``, the
-specs as ``{"cls": name, "fields": {...}}``; ``:235-319`` for CoKriging).  Reading the ``.npz`` checkpoint files themselves is
-ROADMAP.md §A item 14.
+:func:`spr_from_numpy`, :func:`gpr_from_numpy`,
+:func:`cokriging_from_numpy` and :func:`decoder_from_numpy` are the port's
+counterpart of loading weights: each builds a fitted (and trained) port
+model from the JAX model's attributes read out as numpy arrays, under the
+key names of the JAX checkpoint format
+(``openmeasure_tpu/utils/checkpoint.py:69-107``: attribute names, the GP
+parameters flattened as ``params/<path>``, the specs as ``{"cls": name,
+"fields": {...}}``; ``:235-319`` for CoKriging; ``:193-200`` and
+``:445-456`` for the decoder's ``decoder/layer{i}/W`` and ``/b``).  A
+``DMD`` needs no converter (its fit is deterministic: both packages fit
+the same data), and a ``DynamicSensor`` packages an SPR that
+:func:`spr_from_numpy` carries across.  Reading the ``.npz`` checkpoint
+files themselves is ROADMAP.md §A item 14.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..core.device import DeviceLike, as_tensor
+from ..core.device import DeviceLike, as_tensor, to_numpy
 from ..core.host64 import HOST, tree_f64
 from ..gp import kernels as K
 from ..gp.exact_gp import tree_map
@@ -26,7 +31,8 @@ from ..gp.gpr import GPR
 from ..linalg.boxls import LinearConstraints
 from ..multifi.cokriging import CoKriging
 from ..multifi.mfk import BatchedMFK, MultiFiCoKriging, _BatchedMFKView
-from ..rom.rom import ROM
+from ..rom.rom import ROM, apply_sampling
+from ..sensing.decoder import ShallowDecoder
 from ..sensing.spr import SPR
 
 ARRAY_KEYS = ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r", "xyz", "Theta",
@@ -255,3 +261,39 @@ def cokriging_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
     obj._batch = batch
     obj.model_list = [_BatchedMFKView(batch, k) for k in range(obj.n_latent)]
     return obj
+
+
+def decoder_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
+                       device: DeviceLike = None) -> ShallowDecoder:
+    """A fitted port ShallowDecoder holding ``state`` on ``device``
+    (``None`` means the card), ready to ``predict``.
+
+    ``state`` has ``X_cnt``, ``X_scl``, ``C`` and the layers as
+    ``decoder/layer{i}/W`` (fan_in, fan_out) and ``decoder/layer{i}/b``
+    (optionally ``xyz``); ``meta`` has ``n_features`` and ``hidden``.  The
+    snapshot matrix is not carried: ``X`` is a zero-memory placeholder with
+    the right row count."""
+    missing = [k for k in ("X_cnt", "X_scl", "C", "decoder/layer0/W")
+               if k not in state]
+    if missing:
+        raise KeyError(f"decoder_from_numpy: state lacks {missing}")
+    n = np.asarray(state["X_cnt"]).shape[0]
+    placeholder = np.broadcast_to(np.zeros(()), (n, 1))
+    dec = ShallowDecoder(placeholder, int(meta["n_features"]),
+                         state.get("xyz"), hidden=tuple(meta["hidden"]),
+                         device=device)
+    dec.X_cnt = as_tensor(state["X_cnt"], dec.device)
+    dec.X_scl = as_tensor(state["X_scl"], dec.device)
+    dec.C = state["C"]
+    layers = []
+    while f"decoder/layer{len(layers)}/W" in state:
+        i = len(layers)
+        layers.append((as_tensor(state[f"decoder/layer{i}/W"], dec.device),
+                       as_tensor(state[f"decoder/layer{i}/b"], dec.device)))
+    widths = tuple(int(W.shape[1]) for W, _ in layers[:-1])
+    if widths != dec.hidden:
+        raise ValueError(f"decoder_from_numpy: the layers have hidden "
+                         f"widths {widths}, meta says {dec.hidden}")
+    dec.params = layers
+    dec._cnt_vector_cache = to_numpy(apply_sampling(dec.C, dec.X_cnt[:, 0]))
+    return dec

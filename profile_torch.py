@@ -4,6 +4,7 @@
 Run from the root of a checkout::
 
     python3 profile_torch.py [qrcp] [chol] [spr] [gp] [serving] [mfk]
+                             [placement] [dynamics]
 
 With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
 per call against k on random panels of the main path's shapes and layout
@@ -50,7 +51,16 @@ and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
   busy share, device time by kernel name and by kind (the chol kernel
   apart), launches per Newton step (per evaluation of the value, gradient
   and Hessian), ``csrc/chol.cu`` launches per NLL evaluation, and
-  device-to-host copies.
+  device-to-host copies;
+* ``placement``: on the flagship fp32 SPR (r = 14), one traced
+  ``optimal_placement`` call each for GEM (10 sensors, d_min = 0.05), DG (28
+  sensors) and VDG (4 probes): device busy share, device time by kernel name
+  and by kind, launches per greedy step, device-to-host copies;
+* ``dynamics``: on the same model, one traced run of the decoder's trainer
+  (hidden (40, 45), 20 epochs, on the QR placement's 14 sensors), one
+  traced ``DecoderSensor.predict_batch`` and one traced
+  ``DynamicSensor.filter_batch`` and ``smooth_batch`` of 50 frames: device
+  time by kind, launches per epoch or per frame, device-to-host copies.
 
 It needs a card and stops without one.  Every number it prints was
 measured on the card named on its first line.
@@ -115,7 +125,8 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    known = {"qrcp", "chol", "spr", "gp", "serving", "mfk"}
+    known = {"qrcp", "chol", "spr", "gp", "serving", "mfk", "placement",
+             "dynamics"}
     sections = set(sys.argv[1:]) or known
     unknown = sections - known
     if unknown:
@@ -193,14 +204,26 @@ def main() -> int:
         busy share and device time by kernel name.  Returns the per-name
         ``{name: [us, count]}`` sums and the call's window in us."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
         fn()
+        lead = torch.zeros(1, device=dev)
         sync()
+        # a trace can miss its first few device events: a few small
+        # launches go first, and only what starts after the call counts
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(8):
+                lead.add_(1.0)
             sync()
+            with record_function("profile_torch::call"):
+                fn()
+                sync()
         events = list(prof.events())
+        t_call = min(e.time_range.start for e in events
+                     if e.name == "profile_torch::call")
+        # the marker itself shows on the device's timeline as a range
+        events = [e for e in events if e.time_range.start >= t_call
+                  and e.name != "profile_torch::call"]
         dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
         if not dev_ev:
             print("    profiler: no device events recorded", flush=True)
@@ -415,6 +438,71 @@ def main() -> int:
               f"in the call, {launches / max(steps, 1):.1f} per Newton step; "
               f"window per Newton step {window / 1e3 / max(steps, 1):.4f} ms; "
               f"device-to-host copies {dtoh}", flush=True)
+    def traced(label, fn, per, unit):
+        """One traced call of ``fn``: the breakdown, device time by kind,
+        launches in the call and per ``unit`` (``per`` of them), and the
+        device-to-host copies."""
+        print(f"  {label}:", flush=True)
+        by_name, window = breakdown(fn, top=10)
+        total = sum(v[0] for v in by_name.values())
+        launches = sum(v[1] for k, v in by_name.items()
+                       if "memcpy" not in k.lower()
+                       and "memset" not in k.lower())
+        dtoh = sum(v[1] for k, v in by_name.items() if "DtoH" in k)
+        print("    by kind: " + "; ".join(
+            f"{kd} {us / 1e3:.4f} ms ({100 * us / max(total, 1e-9):.1f} %, "
+            f"{cnt} launches)" for kd, (us, cnt) in
+            sorted(by_kind(by_name).items(), key=lambda kv: -kv[1][0])),
+            flush=True)
+        print(f"    {launches} kernel launches in the call, "
+              f"{launches / per:.1f} per {unit}; window per {unit} "
+              f"{window / 1e3 / per:.5f} ms; device-to-host copies {dtoh}",
+              flush=True)
+
+    if "placement" in sections or "dynamics" in sections:
+        d = make_flame_dataset(dtype=np.float32)
+        spr = SPR(d["X_train"], N_FEATURES, d["xyz"])
+        spr.fit(select_modes="number", n_modes=R)
+        C = spr.optimal_placement()
+        spr.train(C)
+        rows = C.argmax(dim=1).cpu().numpy()
+    if "placement" in sections:
+        print("placements, flagship fp32 SPR (r = 14): one traced "
+              "optimal_placement call each", flush=True)
+        for kind, kw, steps in (("gem", dict(n_sensors=10, d_min=0.05), 10),
+                                ("dg", dict(n_sensors=28), 14),
+                                ("vdg", dict(n_sensors=4), 4)):
+            traced(f"{kind} {kw}",
+                   lambda kind=kind, kw=kw: spr.optimal_placement(kind, **kw),
+                   steps, "greedy step" + (" of phase 2" if kind == "dg"
+                                           else ""))
+    if "dynamics" in sections:
+        from openmeasure_torch import DecoderSensor, DynamicSensor
+        from openmeasure_torch import ShallowDecoder
+        from openmeasure_torch.sensing import decoder as dec_mod
+        print("decoder and Kalman serving, flagship fp32 SPR (r = 14, the "
+              "QR placement's 14 sensors)", flush=True)
+        dec = ShallowDecoder(d["X_train"], N_FEATURES, d["xyz"],
+                             hidden=(40, 45))
+        dec.fit(C, epochs=20, lr=3e-3)
+        X0 = (torch.as_tensor(d["X_train"], device=dev) - dec.X_cnt) \
+            / dec.X_scl
+        Y0 = C @ X0
+        p0 = [(W.clone(), b.clone()) for W, b in dec.params]
+        traced("decoder trainer, 20 epochs",
+               lambda: dec_mod._train(Y0.T, X0.T, p0, 20, 3e-3, 1e-6), 20,
+               "epoch")
+        Y = torch.as_tensor(np.tile(d["X_test"][rows].T, (13, 1))[:50],
+                            device=dev)
+        sensor = DecoderSensor.from_decoder(dec).warmup()
+        traced("DecoderSensor.predict_batch, 50 frames",
+               lambda: sensor.predict_batch(Y), 50, "frame")
+        ksensor = DynamicSensor.from_spr(spr).warmup(batch=50)
+        S = torch.full_like(Y, 0.05)
+        for method in ("filter_batch", "smooth_batch"):
+            traced(f"DynamicSensor.{method}, 50 frames, σ = 0.05",
+                   lambda method=method: getattr(ksensor, method)(Y, S), 50,
+                   "frame")
     print(smi, flush=True)
     return 0
 

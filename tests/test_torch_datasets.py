@@ -1,5 +1,9 @@
-"""The port's numpy-only copy of the synthetic flame generator must stay
-bit-identical to the JAX package's (exact equality, every array)."""
+"""The port's numpy-only copies of the dataset helpers must stay
+bit-identical to the JAX package's (exact equality, every array): the
+synthetic flame generator and the loader of the reference's ``data/ROM``
+layout (on a tiny directory written by the test, and its fallback to the
+generator).  The logging helpers that came over with them are checked
+here too."""
 
 import numpy as np
 import pytest
@@ -20,3 +24,76 @@ def test_make_flame_dataset_bit_identical(seed, dtype):
             np.testing.assert_array_equal(a[k], b[k])
         else:
             assert a[k] == b[k]
+
+
+def _write_flame_dir(path, n_cells=12, n_features=3, outline=True):
+    rng = np.random.default_rng(5)
+    np.save(path / "X_2D_train.npy", rng.random((n_cells * n_features, 5)))
+    np.save(path / "X_2D_test.npy", rng.random((n_cells * n_features, 2)))
+    np.save(path / "xz.npy", rng.random((n_cells, 2)))
+    for name, m in (("parameters_train.csv", 5), ("parameters_test.csv", 2)):
+        np.savetxt(path / name, rng.random((m, 3)), delimiter=",",
+                   header="D,H2,phi", comments="")
+    if outline:
+        np.savetxt(path / "mesh_outline.csv", rng.random((7, 2)),
+                   delimiter=",", header="x,z", comments="")
+
+
+def _same_dict(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+        else:
+            assert a[k] == b[k]
+
+
+@pytest.mark.parametrize("outline,dtype", [(True, np.float64),
+                                           (False, np.float32)])
+def test_load_flame_dataset_reads_the_reference_layout(tmp_path, outline,
+                                                       dtype):
+    from openmeasure_tpu.datasets.flame import load_flame_dataset as jax_load
+    from openmeasure_torch.datasets.flame import load_flame_dataset as load
+    _write_flame_dir(tmp_path, outline=outline)
+    got = load(str(tmp_path), dtype=dtype)
+    _same_dict(got, jax_load(str(tmp_path), dtype=dtype))
+    assert got["n_features"] == 3 and got["synthetic"] is False
+    assert got["xyz"].shape == (12, 3) and ("mesh_outline" in got) == outline
+
+
+def test_load_flame_dataset_falls_back_on_missing_or_lfs_files(tmp_path):
+    from openmeasure_torch.datasets.flame import load_flame_dataset as load
+    (tmp_path / "X_2D_train.npy").write_bytes(
+        b"version https://git-lfs.github.com/spec/v1\noid sha256:0\n")
+    with pytest.raises(FileNotFoundError, match="zenodo"):
+        load(str(tmp_path), allow_synthetic_fallback=False)
+    with pytest.raises(FileNotFoundError, match="Git-LFS pointer"):
+        load(str(tmp_path / "absent"), allow_synthetic_fallback=False)
+    got = load(str(tmp_path), dtype=np.float32)
+    assert got.pop("synthetic") is True
+    _same_dict(got, port_make(dtype=np.float32))
+
+
+def test_logging_helpers(tmp_path, caplog):
+    import logging
+
+    import torch
+
+    from openmeasure_torch.utils import logging as tlog
+    tlog.set_verbosity(logging.INFO)
+    try:
+        with caplog.at_level(logging.INFO, logger="openmeasure_torch"):
+            with tlog.timed("block"):
+                pass
+            with tlog.timed("quiet", verbose=False):
+                pass
+        assert [r.getMessage().split(":")[0] for r in caplog.records] == [
+            "block"]
+    finally:
+        tlog.set_verbosity(logging.WARNING)
+    with tlog.device_trace(None):
+        pass
+    with tlog.device_trace(str(tmp_path / "trace")):
+        torch.ones(3).sum()
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0

@@ -34,6 +34,10 @@ def test_import_without_jax_in_a_fresh_process():
         "import openmeasure_torch.gp.gpr, openmeasure_torch.core.host64\n"
         "import openmeasure_torch.linalg.boxls, openmeasure_torch.serving\n"
         "import openmeasure_torch.multifi.mfk, openmeasure_torch.multifi.cokriging\n"
+        "import openmeasure_torch.sensing.gem, openmeasure_torch.sensing.dg\n"
+        "import openmeasure_torch.sensing.vector, openmeasure_torch.sensing.decoder\n"
+        "import openmeasure_torch.dynamics.dmd, openmeasure_torch.dynamics.kalman\n"
+        "import openmeasure_torch.datasets.flame, openmeasure_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
         "       or m.startswith(('jax.', 'openmeasure_tpu.'))]\n"
         "assert sys.modules['jax'] is None and not bad, bad\n"
@@ -83,3 +87,19 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         MultiFiCoKriging()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PIGPR(X, 2, np.zeros((20, 3)), P, P[:2], None)
+    from openmeasure_torch import (DMD, DecoderSensor, DynamicSensor,
+                                   ShallowDecoder)
+    from openmeasure_torch.sensing.vector import vector_onehot
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShallowDecoder(X, 2, np.zeros((20, 3)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DMD(X, 2, np.zeros((20, 3)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecoderSensor([(np.zeros((3, 4)), np.zeros(4))], np.zeros(3),
+                      np.ones(3), np.zeros(4), np.ones(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynamicSensor(X[:, :3], X[:3, :3], np.zeros(3), np.ones(3),
+                      np.zeros(40), np.ones(40), np.eye(3), np.eye(3),
+                      np.zeros(3), np.eye(3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vector_onehot([0, 2], 2, 20)

@@ -176,17 +176,18 @@ def test_spr_from_numpy_matches_jax(flame, fitted_pair):
 
 def test_unported_methods_raise_with_roadmap_item(flame, fitted_pair):
     _, ts, _, Ct = fitted_pair
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ts.optimal_placement("gem")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ts.optimal_placement("dg")
     with pytest.raises(NotImplementedError, match="item 14"):
         ts.update_basis(flame["X_test"])
     import openmeasure_torch
-    with pytest.raises(AttributeError, match="A.11"):
-        openmeasure_torch.ShallowDecoder
-    with pytest.raises(AttributeError, match="A.13"):
-        openmeasure_torch.DynamicSensor
+    with pytest.raises(AttributeError, match="A.14"):
+        openmeasure_torch.StreamingROM
+    with pytest.raises(AttributeError, match="A.14"):
+        openmeasure_torch.StreamingSPR
+    from openmeasure_torch import DecoderSensor, DynamicSensor
+    with pytest.raises(NotImplementedError, match="item 14"):
+        DecoderSensor.load("decoder.npz")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        DynamicSensor.load("spr.npz")
 
 
 def test_class_flow_operator_forms_match_jax(flame):
