@@ -5,7 +5,8 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``openmeasure_torch/csrc``, holds
+It builds the port's CUDA kernels from ``openmeasure_torch/csrc`` (and its
+host C++ ray caster from ``openmeasure_torch/native``), holds
 each kernel against its plain PyTorch version on the card, and drives two
 paths through their user entry points:
 
@@ -48,7 +49,22 @@ paths through their user entry points:
   (fp32 eigenvalues against float64 at the same rank), ``DynamicSensor``
   against the memoryless ``SoftSensor`` under 50 % sensor noise, and
   ``DynamicSensor.from_spr`` on the flagship model at batch 50: filter and
-  smoother against a float64 sensor, with no host read in a batch.
+  smoother against a float64 sensor, with no host read in a batch;
+* CTC tomography (phase 19) at the reference's scale: a 32³ ``VoxelGrid``,
+  a 64×64 camera (parallel, pinhole and thin lens with N_rand 8) and a
+  4-view rig through ``stack_cameras``, the operators from the card held
+  equal to the port's CPU run and read back in one copy each; SPR OLS and
+  COLS on the rig's operator (a torch sparse tensor on the card) within
+  1.10× of the JAX package's float64 held-out NRMSE; the COLS model served
+  by ``SoftSensor`` at batch 50 with no host read; an embedded two-feature
+  rig; ``resample_to_grid`` at the 3D example's scale; an
+  ``UnstructuredMesh`` hexahedral copy of a 16³ grid (the host C++ caster)
+  giving the grid's operator.  No TPU kernel lies on this path;
+* the incremental update (phase 20) at flagship width:
+  ``SPR.update_basis`` (38 + 3 snapshots, r = 14 → 15), the placement after
+  it (a ``csrc/qrcp.cu`` launch), fp32 against float64 in the singular
+  values, the principal angles and the held-out NRMSE against a full
+  refit, and ``GPR.update_basis(retrain=True)`` (``csrc/chol.cu``).
 
 The QRCP kernel is held bit-equal to the plain sweep (a panel with a NaN
 entry, and k > n, included), and ``qrcp_pivots_auto`` must launch it and
@@ -82,6 +98,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -196,6 +213,53 @@ DEC_SERVE_REL = 1e-5
 KF_FIELD_REL = 1e-3
 DMD_EIG_ABS = 1e-4
 
+# CTC (phase 19): the reference's tomography scale (docs/ctc.md §2, §4;
+# bench.py:583-645): a 32³ grid over ±0.1, 64×64 cameras, the 4-view rig
+# of bench.py, the Gaussian-blob emission fields of
+# docs/examples/ctc_example.py; SPR on 10 fields, field 11 held out
+CTC_BOUNDS = (-0.1, 0.1, -0.1, 0.1, -0.1, 0.1)
+CTC_DIMS = (32, 32, 32)
+CTC_TRAIN, CTC_HELD_OUT, CTC_MODES = 10, 11, 5
+CTC_METHODS = {"OLS": {}, "COLS": {"limits": [[0.0], [1.0]]}}
+# the JAX package's float64 held-out NRMSE of that flow on the CPU
+# (tests/test_torch_ctc.py::test_phase19_reference_nrmse_is_jax_float64
+# recomputes it); the card's fp32 value must be within 1.10× of it
+CTC_F64_NRMSE = {"OLS": 0.001761860205993548, "COLS": 0.0017618602059980965}
+CTC_NRMSE_SLACK = 1.10
+# COLS fields inside the physical limits [0, 1] within this, and the
+# served batch (400 ADMM iterations) against a float64 sensor of the same
+# model, relative to the field range: the serving bar of phase 9
+CTC_LIMIT_SLACK = 1e-4
+CTC_SERVE_ITERS = 400
+# fp32 served fields against the float64 sensor relative to the field
+# range: SERVE_COEF_REL's reasoning at 400 iterations (400 · u · tens)
+CTC_SERVE_REL = 2e-3
+# resampling at docs/examples/resampling_3d_example.py's scale
+RESAMPLE = dict(n_cells=20000, n_features=3, m=24, points=25)
+
+# incremental update (phase 20, docs/examples/update_example.py): the
+# flagship 165,258 rows, 38 snapshots, then 3 that arrive later carrying a
+# new regime, r = 14 → 15.  fp32 on the card against the port's float64
+# run: the updated singular values relative to float64's; the largest
+# principal angle (radians) between the bases at each leading dimension k
+# that the fp32 fit resolves (its angle to float64's below
+# UPD_ANGLE_RESOLVED), no wider than UPD_ANGLE_FACTOR × the fit's angle
+# there (the update must not amplify the fit's error) plus the update's own
+# fp32 error, UPD_ANGLE_DK × eps32 · σ₁ / (σ_k − σ_(k+1)) in float64's σ
+# (Davis–Kahan's angle for a perturbation of eps32 · σ₁).  Readings, fp32
+# against float64 on an H100 at 700 W: the fit resolved k ≤ 10 (≤ 2.2e-3
+# rad; 0.29 to 1.50 beyond); after the update the angle there stayed within
+# 2.0 × the fit's, and within 7.0 × the Davis–Kahan term (at k = 10, where
+# the fit's own error dominates; ≤ 1.3 × up to k = 9).  The held-out NRMSE
+# after the update, SPR's and GPR's, against a full refit on all 41
+# columns.
+UPD_M, UPD_NEW, UPD_R = 38, 3, 14
+UPD_SIGMA_REL = 1e-3
+UPD_ANGLE_RESOLVED = 1e-2
+UPD_ANGLE_FACTOR = 4.0
+UPD_ANGLE_DK = 32.0
+UPD_NRMSE_SLACK = 1.10
+
 
 def gem_entropy(U, sel):
     """GEM's objective H_tot of the ordered selection ``sel`` on the
@@ -244,6 +308,54 @@ def vdg_logdet(U, points, n_features, delta):
     blocks = np.swapaxes(U.reshape(n_features, n // n_features, r), 0, 1)
     T = blocks[np.asarray(points)].reshape(-1, r)
     return float(np.linalg.slogdet(delta * np.eye(r) + T.T @ T)[1])
+
+
+def ctc_fields(xyz):
+    """The emission fields of ``docs/examples/ctc_example.py``: 12
+    Gaussian blobs of widths 0.3–1.0 (× 0.05) at the cell centers."""
+    import numpy as np
+    return np.stack([np.exp(-np.sum(xyz ** 2, axis=1) / (2 * (0.05 * a) ** 2))
+                     for a in np.linspace(0.3, 1.0, 12)], axis=1)
+
+
+def ctc_rig(camera):
+    """bench.py's 4-view rig of 64×64 parallel cameras, built with the
+    given camera class."""
+    import numpy as np
+    return [camera(np.array([0.3 * np.sin(i), 0.0, 1.0, 1.0]),
+                   np.array([0.0, 0.0, i * np.pi / 4]), 0.05, 2.8, 0.06,
+                   np.array([64, 64]), 0.25 / 64) for i in range(4)]
+
+
+def ctc_camera(camera):
+    """bench.py's single 64×64 camera at z = 1."""
+    import numpy as np
+    return camera(np.array([0.0, 0.0, 1.0, 1.0]), np.zeros(3), 0.05, 2.8,
+                  0.06, np.array([64, 64]), 0.25 / 64)
+
+
+def update_data():
+    """docs/examples/update_example.py's data: the flagship set's first 38
+    snapshots, 3 that arrive later with a new regime (a localized bump on
+    the first feature block), and 2 held out; all fp32."""
+    import numpy as np
+    from openmeasure_torch.datasets.synthetic import make_flame_dataset
+    data = make_flame_dataset(n_cells=18362, n_features=9, m_train=UPD_M,
+                              m_test=5, seed=0)
+    X = np.asarray(data["X_train"], np.float32)
+    X_new = np.asarray(data["X_test"], np.float32)[:, :UPD_NEW]
+    X_hold = np.asarray(data["X_test"], np.float32)[:, UPD_NEW:]
+    xyz = np.asarray(data["xyz"], np.float64)
+    n_points = X.shape[0] // 9
+    bump = np.exp(-np.sum((xyz - xyz.mean(0) - 0.25 * xyz.std(0)) ** 2,
+                          axis=1) / (0.3 * xyz.std()) ** 2)
+    u_regime = np.zeros(X.shape[0], np.float32)
+    u_regime[:n_points] = (bump / np.linalg.norm(bump)).astype(np.float32)
+    amp = np.abs(X[:n_points]).max()
+    X_new = X_new + np.outer(u_regime, amp * np.array([1.0, 0.8, 1.2],
+                                                      np.float32))
+    return (X, X_new, X_hold, data["xyz"], data["P_train"],
+            data["P_test"][:UPD_NEW], data["P_test"][UPD_NEW:])
 
 
 def dynamics_series():
@@ -334,6 +446,482 @@ def cokriging_lf_set(d):
     return lf.astype(X.dtype), xyz[cells]
 
 
+def principal_angles(A, B):
+    """Largest principal angle (radians) between span(A) and span(B) of
+    each leading dimension k = 1 … min(A, B columns), host float64."""
+    import numpy as np
+    out = []
+    for k in range(1, min(A.shape[1], B.shape[1]) + 1):
+        s = np.linalg.svd(np.linalg.qr(A[:, :k])[0].T
+                          @ np.linalg.qr(B[:, :k])[0], compute_uv=False)
+        out.append(float(np.arccos(np.clip(s.min(), -1.0, 1.0))))
+    return out
+
+
+def ctc_phase(h):
+    """Phase 19: CTC at the reference's tomography scale on the card (see
+    the CTC_* settings)."""
+    import numpy as np
+    import torch
+    from openmeasure_torch import SPR, SoftSensor, ctc
+    from openmeasure_torch.ctc import raytrace
+    from openmeasure_torch.utils.metrics import nrmse
+
+    dev, log, fail = h.dev, h.log, h.fail
+    g_card = ctc.VoxelGrid.from_bounds(CTC_BOUNDS, CTC_DIMS, device=dev)
+    g_cpu = ctc.VoxelGrid.from_bounds(CTC_BOUNDS, CTC_DIMS, device="cpu")
+    steps = sum(CTC_DIMS) + 3
+
+    # the DDA on random rays, card against the plain CPU run
+    rng = np.random.default_rng(19)
+    p1, p2 = (rng.uniform(-0.15, 0.15, (4096, 3)) for _ in range(2))
+    got = {d: raytrace.trace_rays(
+        torch.as_tensor(p1, dtype=torch.float32, device=d),
+        torch.as_tensor(p2, dtype=torch.float32, device=d),
+        g_card.origin, g_card.spacing, CTC_DIMS) for d in (dev, "cpu")}
+    same = (torch.equal(got[dev][0].cpu(), got["cpu"][0])
+            and torch.equal(got[dev][1].cpu(), got["cpu"][1]))
+    n_hit = int((got["cpu"][1] > 0).sum())
+    log(f"  DDA, 4,096 random fp32 rays through the 32³ grid ({n_hit} hit "
+        f"it, {int(got['cpu'][1].sum())} cells): cells and counts on the "
+        f"card equal to the CPU run's={same}")
+    if not same:
+        fail("the DDA's cells on the card differ from the CPU run's")
+
+    # the projections: the operator from the card equal to the CPU's, one
+    # device-to-host copy a trace_csr call
+    cam = ctc_camera(ctc.camera)
+    for model, nrand in (("parallel", 1), ("pinhole", 8), ("thin_lens", 8)):
+        C_card = cam.project(g_card, model, nrand, seed=0)
+        C_cpu = cam.project(g_cpu, model, nrand, seed=0)
+        same = (C_card.nnz == C_cpu.nnz
+                and np.array_equal(C_card.indptr, C_cpu.indptr)
+                and np.array_equal(C_card.indices, C_cpu.indices))
+        fn = (lambda model=model, nrand=nrand:
+              cam.project(g_card, model, nrand, seed=0))
+        med, lo_t, hi_t = h.per_call_ms({0: fn}, reps=6, warmup=1)[0]
+        kernels, dtoh = h.trace_counts(fn)
+        log(f"  project {model} (N_rand {nrand}, {4096 * nrand} rays): "
+            f"{C_card.shape} nnz {C_card.nnz}, equal to the CPU run's "
+            f"(indptr, indices, nnz)={same}; wall per call median "
+            f"{med:.3f} ms (min {lo_t:.3f}, max {hi_t:.3f}; 6 calls); "
+            f"{kernels} device kernels per call "
+            f"({'not measured' if kernels is None else f'{kernels / steps:.1f}'}"
+            f" per DDA step of {steps}), {dtoh} device-to-host copies")
+        if not same or C_card.nnz == 0:
+            fail(f"the {model} operator from the card differs from the CPU's")
+        if dtoh != 1:
+            fail(f"project {model} made {dtoh} device-to-host copies, not 1")
+
+    # a grid of 40³ = 64,000 cells: the columns from 32,768 up travel as
+    # negative int16 and are read back as uint16
+    C_card, C_cpu = (cam.project(ctc.VoxelGrid.from_bounds(
+        CTC_BOUNDS, (40, 40, 40), device=d), "parallel") for d in (dev, "cpu"))
+    same = (C_card.nnz == C_cpu.nnz
+            and np.array_equal(C_card.indptr, C_cpu.indptr)
+            and np.array_equal(C_card.indices, C_cpu.indices))
+    upper = int((C_card.indices >= 2 ** 15).sum())
+    log(f"  project parallel on a 40³ grid: nnz {C_card.nnz}, {upper} "
+        f"columns at 32,768 or above, equal to the CPU run's={same}")
+    if not same or not upper or C_card.indices.max() >= 40 ** 3:
+        fail("the 40³ operator from the card differs from the CPU's")
+
+    # the DDA and the dedup alone, on the thin-lens bundle (32,768 rays)
+    p1, p2, pix = cam._make_rays("thin_lens", 8, np.random.default_rng(0))
+    P1, P2 = (torch.as_tensor(p, dtype=torch.float32, device=dev)
+              for p in (p1, p2))
+    PIX = torch.as_tensor(pix, dtype=torch.int32, device=dev)
+    cap = cam.n_pixels * max(CTC_DIMS)
+    cells = raytrace.trace_rays(P1, P2, g_card.origin, g_card.spacing,
+                                CTC_DIMS)[0]
+    fns = {"dda": lambda: raytrace.trace_rays(P1, P2, g_card.origin,
+                                              g_card.spacing, CTC_DIMS),
+           "dedup": lambda: raytrace.csr_from_cells(
+               cells, PIX, g_card.n_cells, cam.n_pixels, out_cap=cap)}
+    walls = h.per_call_ms(fns, reps=10, warmup=2)
+    k_dda, _ = h.trace_counts(fns["dda"])
+    k_dedup, _ = h.trace_counts(fns["dedup"])
+    log(f"  trace_rays alone (32,768 rays, {steps} steps): median "
+        f"{walls['dda'][0]:.3f} ms (min {walls['dda'][1]:.3f}), {k_dda} "
+        f"kernels; csr_from_cells alone (two sorts of {32768 * steps:,} "
+        f"keys, the scatter): median {walls['dedup'][0]:.3f} ms (min "
+        f"{walls['dedup'][1]:.3f}), {k_dedup} kernels (CUDA events, 10 "
+        f"calls in turns)")
+
+    # a budget below nnz: the exact nnz shows it, a second copy fetches all
+    _, dtoh_cut = h.trace_counts(
+        lambda: g_card.trace_csr(p1, p2, pix, cam.n_pixels, readback_cap=64))
+    skel_cut = g_card.trace_csr(p1, p2, pix, cam.n_pixels, readback_cap=64)
+    skel_full = g_card.trace_csr(p1, p2, pix, cam.n_pixels)
+    same = all(np.array_equal(a, b) for a, b in zip(skel_cut, skel_full))
+    log(f"  trace_csr with a 64-column budget (nnz {skel_full[1].size}): "
+        f"{dtoh_cut} device-to-host copies, the operator equal to the "
+        f"default budget's={same}")
+    if dtoh_cut != 2 or not same:
+        fail("the over-budget trace_csr did not refetch exactly once")
+
+    # the 4-view rig in one trace
+    rig = ctc_rig(ctc.camera)
+    C_rig = ctc.stack_cameras(rig, g_card, "parallel", seed=0)
+    C_rig_cpu = ctc.stack_cameras(rig, g_cpu, "parallel", seed=0)
+    fn = lambda: ctc.stack_cameras(rig, g_card, "parallel", seed=0)  # noqa
+    med, lo_t, hi_t = h.per_call_ms({0: fn}, reps=6, warmup=1)[0]
+    kernels, dtoh = h.trace_counts(fn)
+    same = (C_rig != C_rig_cpu).nnz == 0
+    log(f"  stack_cameras, 4 views × 64×64 parallel: {C_rig.shape} nnz "
+        f"{C_rig.nnz}, equal to the CPU run's={same}; wall median "
+        f"{med:.3f} ms (min {lo_t:.3f}, max {hi_t:.3f}), {kernels} kernels, "
+        f"{dtoh} device-to-host copies")
+    if not same or dtoh != 1:
+        fail("the rig's operator differs from the CPU's or took more than "
+             "one copy")
+
+    # the reconstruction: SPR on 10 fields, the rig's operator as a torch
+    # sparse tensor on the card, OLS and COLS in [0, 1]
+    xyz = g_card.cell_centers()
+    X = ctc_fields(xyz).astype(np.float32)
+    coo = C_rig.tocoo()
+    C_t = torch.sparse_coo_tensor(np.vstack([coo.row, coo.col]), coo.data,
+                                  size=C_rig.shape, dtype=torch.float32,
+                                  device=dev, check_invariants=True)
+    truth = torch.as_tensor(X[:, CTC_HELD_OUT], device=dev)
+    y = np.zeros((C_rig.shape[0], 3))
+    y[:, 0] = C_rig @ X[:, CTC_HELD_OUT].astype(np.float64)
+    models = {}
+    for method, kw in CTC_METHODS.items():
+        spr = SPR(X[:, :CTC_TRAIN], 1, xyz, device=dev)
+        spr.fit(select_modes="number", n_modes=CTC_MODES)
+        spr.train(C_t, method=method, **kw)
+        x = spr.reconstruct(spr.predict(y)[0])[:, 0]
+        nr = float(nrmse(x, truth))
+        bar = CTC_NRMSE_SLACK * CTC_F64_NRMSE[method]
+        log(f"  SPR {method}, n_modes {CTC_MODES}, trained on the rig's "
+            f"operator (torch sparse on the card): held-out NRMSE {nr:.6e} "
+            f"(≤ {bar:.6e}; the JAX package's float64 "
+            f"{CTC_F64_NRMSE[method]:.6e}); field range "
+            f"[{float(x.min()):.4e}, {float(x.max()):.4e}]")
+        if not nr <= bar:
+            fail(f"CTC {method} NRMSE {nr:.3e} above {bar:.3e}")
+        if method == "COLS" and not (float(x.min()) >= -CTC_LIMIT_SLACK
+                                     and float(x.max()) <= 1 + CTC_LIMIT_SLACK):
+            fail("CTC COLS fields leave [0, 1]")
+        models[method] = spr
+
+    # the constrained model served at batch 50, each frame C @ x
+    fid = np.zeros(C_rig.shape[0], int)
+    s32 = SoftSensor.from_spr(models["COLS"], feature_ids=fid,
+                              admm_iters=CTC_SERVE_ITERS).warmup()
+    s64 = SoftSensor.from_spr(models["COLS"], feature_ids=fid,
+                              dtype=torch.float64,
+                              admm_iters=CTC_SERVE_ITERS)
+    frames = torch.as_tensor(np.stack(
+        [C_rig @ X[:, j % 12].astype(np.float64)
+         for j in range(SERVE_BATCH)]), dtype=torch.float32, device=dev)
+    f32 = s32.predict_batch(frames)[0]
+    f64 = s64.predict_batch(frames.double())[0]
+    err = float((f32.double() - f64).abs().max() / (f64.max() - f64.min()))
+    med, lo_t, hi_t = h.per_call_ms({0: lambda: s32.predict_batch(frames)},
+                                    reps=10, warmup=2)[0]
+    kernels, dtoh = h.trace_counts(lambda: s32.predict_batch(frames))
+    n_sync = h.host_syncs(lambda: s32.predict_batch(frames))
+    lo_f, hi_f = float(f32.min()), float(f32.max())
+    log(f"  SoftSensor COLS ({CTC_SERVE_ITERS} ADMM iterations, "
+        f"feature_ids 0) at batch {SERVE_BATCH}: {med / SERVE_BATCH:.5f} "
+        f"ms per frame (batch median {med:.4f} ms, min {lo_t:.4f}, max "
+        f"{hi_t:.4f}); {kernels} kernels, {dtoh} device-to-host copies and "
+        f"{n_sync} synchronizing calls per batch; fields in [{lo_f:.3e}, "
+        f"{hi_f:.6f}]; fp32 against a float64 sensor {err:.3e} of the "
+        f"range (≤ {CTC_SERVE_REL})")
+    if dtoh or n_sync:
+        fail("a served CTC batch read back to the host")
+    if not (lo_f >= -CTC_LIMIT_SLACK and hi_f <= 1 + CTC_LIMIT_SLACK):
+        fail("served CTC fields leave [0, 1]")
+    if not err <= CTC_SERVE_REL:
+        fail(f"served CTC fields {err:.3e} from float64")
+
+    # the rig embedded in a two-feature state, the second feature emitting
+    C_emb = ctc.stack_cameras(rig, g_card, "parallel", seed=0, n_features=2,
+                              feature_index=1)
+    same = (C_emb != ctc.embed_projection(C_rig, 2, 1)).nnz == 0
+    temp = 1.0 + 0.5 * X + 0.1 * xyz[:, [0]].astype(np.float32)
+    X2 = np.concatenate([temp, X], axis=0)
+    spr2 = SPR(X2[:, :CTC_TRAIN], 2, xyz, device=dev)
+    spr2.fit(select_modes="number", n_modes=CTC_MODES)
+    spr2.train(C_emb)
+    y2 = np.zeros((C_emb.shape[0], 3))
+    y2[:, 0] = C_emb @ X2[:, CTC_HELD_OUT].astype(np.float64)
+    y2[:, 2] = 1
+    x2 = spr2.reconstruct(spr2.predict(y2)[0])[:, 0]
+    nr2 = float(nrmse(x2[g_card.n_cells:], truth))
+    log(f"  embedded rig (n_features 2, feature_index 1): {C_emb.shape}, "
+        f"equal to embed_projection of the rig's={same}; the emitting "
+        f"feature's held-out NRMSE {nr2:.4e}")
+    if not same or not np.isfinite(nr2):
+        fail("the embedded rig's operator or reconstruction is wrong")
+
+    # resampling at docs/examples/resampling_3d_example.py's scale (host)
+    rs = np.random.default_rng(0)
+    pts = rs.uniform(-1, 1, (RESAMPLE["n_cells"], 3))
+    P = np.linspace(0.2, 1.0, RESAMPLE["m"])
+    Xs = np.concatenate([
+        np.exp(-np.sum(pts ** 2, 1)[:, None] / (0.3 + 0.4 * P[None, :])),
+        np.sin(np.pi * pts[:, [0]] * (1 + P[None, :]))
+        * np.cos(np.pi * pts[:, [1]]),
+        P[None, :] * pts[:, [2]] ** 2], axis=0)
+    for method in ("linear", "idw"):
+        t0 = time.perf_counter()
+        grid_r, X_int, xyz_int = ctc.resample_to_grid(
+            pts, Xs, [RESAMPLE["points"]] * 3, method=method, device=dev)
+        dt = (time.perf_counter() - t0) * 1e3
+        ok = (X_int.shape == (3 * grid_r.n_cells, RESAMPLE["m"])
+              and bool(np.all(np.isfinite(X_int))))
+        log(f"  resample_to_grid {method}: {RESAMPLE['n_features']} "
+            f"features × {RESAMPLE['n_cells']:,} points × {RESAMPLE['m']} "
+            f"snapshots onto {RESAMPLE['points']}³ points ({grid_r.n_cells:,}"
+            f" cells): {dt:.1f} ms host wall, finite of shape "
+            f"{X_int.shape}={ok}")
+        if not ok:
+            fail(f"resample_to_grid {method} is not finite of its shape")
+
+    # an unstructured hexahedral copy of a 16³ grid gives its operator
+    g16 = ctc.VoxelGrid.from_bounds(CTC_BOUNDS, (16, 16, 16), device=dev)
+    P16, cells16 = voxel_hex_mesh(g16)
+    mesh = ctc.UnstructuredMesh.from_cells(P16, cells16)
+    C_vox = cam.project(g16, "parallel")
+    t0 = time.perf_counter()
+    C_mesh = cam.project(mesh, "parallel")
+    dt = (time.perf_counter() - t0) * 1e3
+    same = (C_vox != C_mesh).nnz == 0
+    log(f"  UnstructuredMesh.from_cells, the 16³ grid as {len(cells16)} "
+        f"hexahedra (exact caster, host C++): project parallel {dt:.1f} ms, "
+        f"nnz {C_mesh.nnz}, equal to the voxel grid's operator={same}")
+    if not same or C_mesh.nnz == 0:
+        fail("the hexahedral copy's operator differs from the voxel grid's")
+
+
+def voxel_hex_mesh(grid):
+    """The voxel grid's cells as explicit hexahedra (VTK vertex order, in
+    the grid's cell order): (points, cells)."""
+    import numpy as np
+    nx, ny, nz = grid.dims
+    axes = [grid.origin[a] + grid.spacing[a] * np.arange(n + 1)
+            for a, n in enumerate(grid.dims)]
+    Z, Y, Xg = np.meshgrid(axes[2], axes[1], axes[0], indexing="ij")
+    pts = np.stack([Xg.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    i, j, k = (a.ravel() for a in np.meshgrid(np.arange(nx), np.arange(ny),
+                                              np.arange(nz), indexing="ij"))
+    order = np.lexsort((i, j, k))
+    i, j, k = i[order], j[order], k[order]
+
+    def vid(a, b, c):
+        return a + (nx + 1) * (b + (ny + 1) * c)
+    cells = np.stack([vid(i, j, k), vid(i + 1, j, k), vid(i + 1, j + 1, k),
+                      vid(i, j + 1, k), vid(i, j, k + 1),
+                      vid(i + 1, j, k + 1), vid(i + 1, j + 1, k + 1),
+                      vid(i, j + 1, k + 1)], axis=1)
+    return pts, cells
+
+
+def update_phase(h):
+    """Phase 20: the incremental update at flagship width (see the UPD_*
+    settings).  Returns (qrcp launches, chol launches)."""
+    import numpy as np
+    import torch
+    from openmeasure_torch import GPR, SPR
+    from openmeasure_torch.utils.metrics import nrmse
+
+    dev, log, fail = h.dev, h.log, h.fail
+    X, X_new, X_hold, xyz, P_tr, P_new, P_hold = update_data()
+    npts = X.shape[0] // 9
+    r1 = UPD_R + 1
+
+    def gappy(spr, cols):
+        rows = spr.C.argmax(dim=1).cpu().numpy()
+        ys = [np.column_stack([cols[rows, j], np.zeros(rows.size),
+                               rows // npts]) for j in range(cols.shape[1])]
+        x = spr.reconstruct(spr.predict(ys)[0]).double()
+        return float(nrmse(x, torch.as_tensor(cols, dtype=torch.float64,
+                                              device=dev)))
+
+    def qrcp_on_panel(spr, C, what):
+        """csrc/qrcp.cu against the plain sweep on the panel that the fp32
+        model's optimal_placement gave it, Ur.T (r, 165,258): the pivots
+        and final norms equal, and the pivots those of C."""
+        eq, pk, pp, err, _, same_nf = h.kernel_vs_plain(spr.Ur.T, spr.r,
+                                                        None)
+        placed = bool(np.array_equal(pk, C.argmax(dim=1).cpu().numpy()))
+        log(f"  csrc/qrcp.cu vs plain sweep on {what}'s panel "
+            f"{tuple(spr.Ur.T.shape)} k = {spr.r}: pivots equal={eq}, final "
+            f"norms equal={err == 0.0 and same_nf}, the placement's "
+            f"pivots={placed}")
+        if not (eq and err == 0.0 and same_nf and placed):
+            fail(f"csrc/qrcp.cu differs from the plain sweep on {what}'s "
+                 f"panel")
+
+    runs, n_qrcp = {}, 0
+    for tag, dt in (("fp32", np.float32), ("float64", np.float64)):
+        spr = SPR(X.astype(dt), 9, xyz, device=dev)
+        spr.fit(select_modes="number", n_modes=UPD_R)
+        C, n = h.counted(lambda: spr.optimal_placement())
+        n_qrcp += n
+        if tag == "fp32":
+            qrcp_on_panel(spr, C, "the fit")
+        spr.train(C)
+        before = (gappy(spr, X_hold), gappy(spr, X_new))
+        U_fit = spr.Ur.double().cpu().numpy()
+        kernels, dtoh = h.trace_counts(
+            lambda: spr.update_basis(X_new.astype(dt), n_modes=r1))
+        C, n = h.counted(lambda: spr.optimal_placement())
+        n_qrcp += n
+        if tag == "fp32":
+            qrcp_on_panel(spr, C, "the update")
+        spr.train(C)
+        after = (gappy(spr, X_hold), gappy(spr, X_new))
+        runs[tag] = dict(spr=spr, U_fit=U_fit, before=before, after=after,
+                         kernels=kernels, dtoh=dtoh, qrcp=n)
+        if dtoh > 3:
+            fail(f"{tag} update_basis read back {dtoh} times; the JAX code "
+                 "reads 3 (S, M and R)")
+
+    # the update's wall, each call on a fresh fp32 model, against a refit
+    def fresh():
+        spr = SPR(X, 9, xyz, device=dev)
+        spr.fit(select_modes="number", n_modes=UPD_R)
+        return spr
+    walls = [h.per_call_ms({0: (lambda m=m: m.update_basis(
+        X_new, n_modes=r1))}, reps=1, warmup=0)[0][0]
+        for m in [fresh() for _ in range(5)]]
+    X_all = np.hstack([X, X_new])
+    refit = {}
+    for tag, dt in (("fp32", np.float32), ("float64", np.float64)):
+        ref = SPR(X_all.astype(dt), 9, xyz, device=dev)
+        ref.fit(select_modes="number", n_modes=r1)
+        C, n = h.counted(lambda: ref.optimal_placement())
+        n_qrcp += n
+        if tag == "fp32":
+            qrcp_on_panel(ref, C, "the refit")
+        ref.train(C)
+        refit[tag] = (ref, gappy(ref, X_hold), gappy(ref, X_new))
+    fit_wall = h.per_call_ms({0: lambda: SPR(X_all, 9, xyz, device=dev).fit(
+        select_modes="number", n_modes=r1)}, reps=5, warmup=1)[0]
+    log(f"  SPR.update_basis(3 snapshots, n_modes {r1}) on fresh fp32 "
+        f"models: median {statistics.median(walls):.3f} ms (min "
+        f"{min(walls):.3f}, max {max(walls):.3f}; 5 calls, CUDA events); "
+        f"{runs['fp32']['kernels']} kernels, {runs['fp32']['dtoh']} "
+        f"device-to-host copies (the JAX code reads 3: S, M and R); a full "
+        f"fp32 refit on all 41 columns {fit_wall[0]:.3f} ms")
+
+    s32 = runs["fp32"]["spr"].Sigma_r.double().cpu().numpy()
+    s64 = runs["float64"]["spr"].Sigma_r.cpu().numpy()
+    sig_rel = float(np.max(np.abs(s32 - s64)) / s64[0])
+    ang_fit = principal_angles(runs["fp32"]["U_fit"], runs["float64"]["U_fit"])
+    U32 = runs["fp32"]["spr"].Ur.double().cpu().numpy()
+    U64 = runs["float64"]["spr"].Ur.cpu().numpy()
+    ang_upd = principal_angles(U32, U64)
+    ang_ref = principal_angles(U64, refit["float64"][0].Ur.cpu().numpy())
+    log(f"  singular values after the update, fp32 against float64: max "
+        f"|Δσ| / σ₁ {sig_rel:.3e} (≤ {UPD_SIGMA_REL}); σ₁ {s64[0]:.6e}, "
+        f"σ₁₅ {s64[-1]:.6e}")
+    log(f"  largest principal angle fp32 vs float64 (radians) by leading "
+        f"dimension k = 1…{r1}, after the update: "
+        + ", ".join(f"{a:.2e}" for a in ang_upd)
+        + "; after the fit (k = 1…14): "
+        + ", ".join(f"{a:.2e}" for a in ang_fit)
+        + f"; float64 update vs float64 refit at k = {r1}: "
+        f"{ang_ref[-1]:.3e}")
+    for tag in ("fp32", "float64"):
+        b, a, rf = runs[tag]["before"], runs[tag]["after"], refit[tag]
+        log(f"  {tag} held-out / new-snapshot NRMSE from the sensors: before "
+            f"the update {b[0]:.4e} / {b[1]:.4e}; after {a[0]:.4e} / "
+            f"{a[1]:.4e}; full refit on 41 columns {rf[1]:.4e} / "
+            f"{rf[2]:.4e}; qrcp launches after the update "
+            f"{runs[tag]['qrcp']}")
+        for what, got, ref in (("held-out", a[0], rf[1]),
+                               ("new", a[1], rf[2])):
+            bar = max(UPD_NRMSE_SLACK * ref, NRMSE_FLAGSHIP_MAX)
+            if not got <= bar:
+                fail(f"{tag} {what} NRMSE after the update {got:.3e} above "
+                     f"{bar:.3e}")
+    if not sig_rel <= UPD_SIGMA_REL:
+        fail(f"fp32 updated singular values {sig_rel:.3e} from float64")
+    k_res = next((k for k, a in enumerate(ang_fit)
+                  if a > UPD_ANGLE_RESOLVED), len(ang_fit))
+    if k_res < 1:
+        fail("the fp32 fit resolves no leading dimension of float64's basis")
+    dk = [float(np.finfo(np.float32).eps) * s64[0] / (s64[k] - s64[k + 1])
+          for k in range(k_res)]
+    bar = [UPD_ANGLE_FACTOR * ang_fit[k] + UPD_ANGLE_DK * dk[k]
+           for k in range(k_res)]
+    wider = [k + 1 for k in range(k_res) if not ang_upd[k] <= bar[k]]
+    log(f"  the fp32 fit resolves k = 1…{k_res} (angle ≤ "
+        f"{UPD_ANGLE_RESOLVED}); the update's angle there / the fit's: "
+        + ", ".join(f"{ang_upd[k] / max(ang_fit[k], 1e-300):.3f}"
+                    for k in range(k_res))
+        + "; / eps32·σ₁/gap: "
+        + ", ".join(f"{ang_upd[k] / dk[k]:.3f}" for k in range(k_res))
+        + f"; / its bar ({UPD_ANGLE_FACTOR} × the fit's + {UPD_ANGLE_DK} × "
+        f"eps32·σ₁/gap): "
+        + ", ".join(f"{ang_upd[k] / bar[k]:.3f}" for k in range(k_res)))
+    if wider:
+        fail(f"the fp32 update widened the angle to float64 at k = {wider} "
+             f"(the fit resolves k = 1…{k_res})")
+    if runs["fp32"]["qrcp"] != 1:
+        fail("the placement after the fp32 update did not launch "
+             "csrc/qrcp.cu once")
+
+    # GPR.update_basis with a retrain: the rank grows, so Adam runs afresh
+    gp = {}
+    for tag, dt in (("fp32", np.float32), ("float64", np.float64)):
+        g = GPR(X.astype(dt), 9, xyz, P_tr, device=dev)
+        g.fit(select_modes="number", n_modes=UPD_R)
+        g.train()
+        launches = []
+        ms = h.per_call_ms({0: lambda: launches.append(h.chol_counted(
+            lambda: g.update_basis(X_new.astype(dt), P_new, n_modes=r1,
+                                   retrain=True))[1])},
+            reps=1, warmup=0)[0][0]
+        A, _ = g.predict(P_hold)
+        nr = float(nrmse(g.reconstruct(A).double(),
+                         torch.as_tensor(X_hold, dtype=torch.float64,
+                                         device=dev)))
+        gp[tag] = (nr, launches[0], ms, g._iterations.tolist())
+        if tag == "fp32":
+            # the kernel's input on this path: the retrained model's
+            # jittered kernel matrices at its 41 training points
+            K = h.gp_matrices(g)
+            (eq, dk, dl), (tk, tl) = h.chol_errors(K)
+            log(f"  csrc/chol.cu vs chol_inv_logdet_plain on the retrain's "
+                f"matrices {tuple(K.shape)}: equal={eq} (max |ΔK⁻¹| "
+                f"{dk:.3e}, |Δlogdet| {dl:.3e}); vs the fp32 Cholesky "
+                f"formulation K⁻¹ {tk:.3e}, logdet {tl:.3e}")
+            if not eq or tuple(K.shape) != (r1, UPD_M + UPD_NEW,
+                                            UPD_M + UPD_NEW):
+                fail("csrc/chol.cu differs from its plain version on the "
+                     "retrain's matrices")
+    g_ref = GPR(X_all.astype(np.float64), 9, xyz, np.vstack([P_tr, P_new]),
+                device=dev)
+    g_ref.fit(select_modes="number", n_modes=r1)
+    g_ref.train()
+    nr_ref = float(nrmse(g_ref.reconstruct(g_ref.predict(P_hold)[0]),
+                         torch.as_tensor(X_hold, dtype=torch.float64,
+                                         device=dev)))
+    for tag, (nr, n_chol, ms, its) in gp.items():
+        log(f"  GPR.update_basis(n_modes {r1}, retrain=True) {tag}: the rank "
+            f"changed, Adam afresh ({its} iterations), {ms:.1f} ms, chol "
+            f"launches {n_chol}; held-out NRMSE {nr:.6e} (float64 full refit "
+            f"on 41 columns {nr_ref:.6e})")
+    if not gp["fp32"][0] <= GPR_NRMSE_SLACK * gp["float64"][0]:
+        fail(f"fp32 GPR after update_basis {gp['fp32'][0]:.4e} against "
+             f"float64's {gp['float64'][0]:.4e}")
+    for tag, (nr, *_) in gp.items():
+        if not nr <= UPD_NRMSE_SLACK * nr_ref:
+            fail(f"{tag} GPR after update_basis {nr:.4e} against the "
+                 f"float64 refit's {nr_ref:.4e}")
+    if gp["fp32"][1] < 1:
+        fail("the fp32 GPR retrain never launched csrc/chol.cu")
+    return n_qrcp, gp["fp32"][1]
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -383,9 +971,9 @@ def main() -> int:
     # ---- build every kernel from the checkout's sources ----------------
     t0 = time.perf_counter()
     names = _build.load_all()
-    log(f"build: {names} in {time.perf_counter() - t0:.1f} s (one nvcc per "
-        "source, in parallel)")
-    for name in names:
+    log(f"build: {names} in {time.perf_counter() - t0:.1f} s (one nvcc or "
+        "g++ per source, in parallel)")
+    for name in _build.sources():
         for line in _build.build_log(name).splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling entry")):
@@ -895,15 +1483,19 @@ def main() -> int:
         f"max {int(its.max())} → "
         f"{statistics.median(walls) / int(its.max()):.4f} ms per iteration")
 
+    def gp_matrices(g):
+        """A trained GPR's jittered kernel matrices at its training points,
+        (r, m, m): what csrc/chol.cu gets on its path."""
+        with torch.no_grad():
+            tp = g.params
+            Kn = exact_gp._add_noise(g.kernel(tp["kernel"], g.P0, g.P0),
+                                     g.likelihood.noise(tp["likelihood"]))
+            return (Kn + exact_gp._jitter(Kn.dtype)
+                    * torch.eye(Kn.shape[-1], device=dev)).contiguous()
+
     # the kernel's input on the main path: the trained SingleTask model's
-    # jittered kernel matrices at its 41 training points, (14, 41, 41)
-    with torch.no_grad():
-        tp = gp_single.params
-        Kxx = gp_single.kernel(tp["kernel"], gp_single.P0, gp_single.P0)
-        Kn = exact_gp._add_noise(
-            Kxx, gp_single.likelihood.noise(tp["likelihood"]))
-        Kmain = (Kn + exact_gp._jitter(Kn.dtype)
-                 * torch.eye(Kn.shape[-1], device=dev)).contiguous()
+    # matrices at its 41 training points, (14, 41, 41)
+    Kmain = gp_matrices(gp_single)
     (eq, dk, dl), (tk, tl) = chol_errors(Kmain)
     log(f"  main-path matrices {tuple(Kmain.shape)}: vs plain equal={eq} "
         f"(max |ΔK⁻¹| {dk:.3e}, |Δlogdet| {dl:.3e}); vs the fp32 Cholesky "
@@ -1840,6 +2432,37 @@ def main() -> int:
     for r_ in records:
         if r_["name"] == "qrcp_pivots_cuda[flagship]":
             r_["launches"] += n_qr16 + n_place["dg"] + n_qr18
+
+    h = SimpleNamespace(dev=dev, log=log, fail=fail, counted=counted,
+                        chol_counted=chol_counted, per_call_ms=per_call_ms,
+                        trace_counts=trace_counts, host_syncs=host_syncs,
+                        kernel_vs_plain=kernel_vs_plain,
+                        chol_errors=chol_errors, gp_matrices=gp_matrices)
+    log(f"phase 19: CTC at the reference's tomography scale — a 32³ "
+        f"VoxelGrid over ±0.1, a 64×64 camera (parallel; pinhole and thin "
+        f"lens with N_rand 8, seed 0), bench.py's 4-view rig through "
+        f"stack_cameras, SPR (n_modes {CTC_MODES}) OLS and COLS in [0, 1] "
+        f"on {CTC_TRAIN} Gaussian-blob fields with field {CTC_HELD_OUT} "
+        f"held out, SoftSensor at batch {SERVE_BATCH}, resampling, and an "
+        f"unstructured copy of a 16³ grid.  No TPU kernel is on this path "
+        f"(the JAX package's is XLA: jit, vmap, fori_loop, sort)")
+    t_phase = time.perf_counter()
+    ctc_phase(h)
+    log(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    log(f"phase 20: incremental update at flagship width "
+        f"(docs/examples/update_example.py: 165,258 rows, {UPD_M} "
+        f"snapshots, then {UPD_NEW} with a new regime; r = {UPD_R} → "
+        f"{UPD_R + 1}); SPR.update_basis → optimal_placement (csrc/qrcp.cu) "
+        f"→ train, GPR.update_basis(retrain=True) (csrc/chol.cu); fp32 "
+        f"against the port's float64 run on the card")
+    t_phase = time.perf_counter()
+    n_qr20, n_chol20 = update_phase(h)
+    log(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    for r_ in records:
+        if r_["name"] == "qrcp_pivots_cuda[flagship]":
+            r_["launches"] += n_qr20
+        if r_["name"] == "chol_inv_logdet_cuda":
+            r_["launches"] += n_chol20
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -16,7 +16,10 @@ Kalman-filtering ``DynamicSensor``), with the box-constrained ADMM solver
 (``linalg/boxls.py``) behind the constrained variants.  The other
 placements (``gem``, ``dg``, ``vdg``) and the shallow decoder
 (``ShallowDecoder``) sit beside the QR placement, and ``DMD`` analyses a
-time-ordered snapshot series.  Module names, public
+time-ordered snapshot series.  ``update_basis`` folds new snapshots into a
+fitted basis (Brand's incremental SVD update).  ``openmeasure_torch.ctc``
+builds tomography operators: voxel grids traced on the card, unstructured
+meshes by a host C++ caster, cameras and rigs.  Module names, public
 function names and array layouts follow ``openmeasure_tpu`` so each piece
 has an obvious counterpart.
 
@@ -26,6 +29,7 @@ has an obvious counterpart.
     from openmeasure_torch import DMD, DynamicSensor
     from openmeasure_torch.pipelines import (spr_end_to_end, gpr_end_to_end,
                                              mfk_end_to_end)
+    from openmeasure_torch.ctc import VoxelGrid, camera, stack_cameras
 
 Every entry point takes ``device=None``, which means ``"cuda"``; with no
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run

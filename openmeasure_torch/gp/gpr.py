@@ -32,16 +32,19 @@ retrains: MultiTask reruns Adam from the current hyperparameters,
 SingleTask swaps in a ``FixedNoiseGaussianLikelihood`` of the data
 variances.  :class:`PIGPR` trains with a physics-informed added loss,
 differentiated by autograd through the posterior at constraint points
-(on the card, through ``csrc/chol.cu``).  ``update_basis`` (incremental
-SVD) is not ported yet and raises ``NotImplementedError`` naming
-ROADMAP.md §A item 14.  The JAX package's documented deviations from the
+(on the card, through ``csrc/chol.cu``).  ``update_basis`` folds new
+(parameter, snapshot) pairs into both the POD basis (Brand's incremental
+update, :meth:`ROM.update_basis`) and the GP training set, and optionally
+retrains.  The JAX package's documented deviations from the
 reference (``Vr_sigma`` at the trained hyperparameters, SingleTask
 constrained predict raising, ``update`` extending the MultiTask training
 set and ``Vr_sigma`` with the prior stddev) carry over.
 
-Documented deviation: ``PIGPR.train`` raises ``ValueError`` on a model
+Documented deviations: ``PIGPR.train`` raises ``ValueError`` on a model
 whose ``engine`` is ``'host'``, where the JAX package's silently switches
-it to ``'device'``.
+it to ``'device'``; ``update_basis(retrain=True)`` across a change of rank
+trains afresh under the model's own engine, where the JAX package's
+``train`` call falls back to its default ``'device'``.
 """
 
 from __future__ import annotations
@@ -579,10 +582,130 @@ class GPR(ROM):
         self._iterations = res.iterations
         self._refresh_api_compat()
 
-    def update_basis(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GPR.update_basis (incremental SVD) is not ported yet "
-            "(ROADMAP.md §A item 14).")
+    def _guard_no_orphaned_updates(self):
+        """update_basis derives the GP training set again from the fitted
+        coefficients only; (P, A) pairs assimilated before by update() have
+        no raw snapshots to rotate and would vanish: reject instead."""
+        if hasattr(self, "_train_X") and \
+                int(self._train_X.shape[0]) > int(self.P0.shape[0]):
+            raise ValueError(
+                "update_basis would silently discard the extra (P, A) "
+                "pairs previously assimilated via update() (their raw "
+                "snapshots are not retained, so the basis rotation "
+                "cannot re-derive their targets). Run update_basis "
+                "first and update() after, or refit from the extended "
+                "snapshot set.")
+
+    def update_basis(self, X_new, P_new, select_modes: str = "number",
+                     n_modes=None, reorth: bool = True,
+                     retrain: bool = False, verbose: bool = False):
+        """Assimilate new (parameter, snapshot) pairs into BOTH the POD
+        basis and the GP regression.
+
+        The basis absorbs the new snapshots by Brand's incremental update
+        (:meth:`ROM.update_basis`, frozen scaling statistics), and because
+        that update rotates every right factor, the GP targets of the
+        ORIGINAL parameter points change too: unlike :meth:`update`, the
+        whole training set is set anew (``P0`` extended, the updated
+        ``Vr``).  ``P_new`` is scaled with the frozen parameter statistics.
+
+        On a trained model a change of rank orphans the per-mode parameter
+        stacks: the trained state is dropped, and ``retrain=True`` trains
+        afresh with the saved mean/kernel/likelihood specs (a multitask
+        likelihood is rebuilt at the new rank) under the model's engine;
+        ``retrain=False`` leaves the model fitted but untrained.  With the
+        rank unchanged, ``retrain=True`` reruns the Adam/early-stop loop
+        from the CURRENT hyperparameters."""
+        self._guard_pigpr_retrain(retrain)
+        self._guard_no_orphaned_updates()
+        if not isinstance(X_new, torch.Tensor):
+            X_new = np.asarray(X_new)
+        q = 1 if X_new.ndim == 1 else X_new.shape[1]
+        P_new = self._validate_update_params(P_new, q)
+        trained = hasattr(self, "params")
+        r_old = self.r
+        super().update_basis(X_new, select_modes=select_modes,
+                             n_modes=n_modes, reorth=reorth)
+        self._assimilate_params_after_update(P_new, trained, r_old,
+                                             retrain, verbose)
+
+    def _validate_update_params(self, P_new, q):
+        """The arriving parameter rows against the arriving snapshot
+        count ``q``."""
+        P_new = np.atleast_2d(to_numpy(P_new))
+        if P_new.shape[0] != q:
+            raise Exception(
+                f"The number of parameters ({P_new.shape[0]}) is different"
+                f" from the number of columns of X ({q})")
+        if P_new.shape[1] != self.P.shape[1]:
+            raise ValueError(
+                f"P_new has {P_new.shape[1]} columns; expected "
+                f"{self.P.shape[1]}.")
+        return P_new
+
+    def _assimilate_params_after_update(self, P_new, trained, r_old,
+                                        retrain, verbose):
+        """The GP side after the basis absorbed the new snapshots: extend
+        P/P0 with the frozen parameter statistics, set the training set
+        anew (the update rotated every right factor), optionally retrain
+        from the current hyperparameters."""
+        rank_changed = trained and self.r != r_old
+        if rank_changed:
+            # the (r_old, ...) parameter stacks are orphaned: drop the
+            # trained state, the model is fitted but untrained again
+            for a in ("params", "models", "likelihoods", "Vr_sigma",
+                      "_final_loss", "_iterations", "_train_X", "_train_Y"):
+                if hasattr(self, a):
+                    delattr(self, a)
+            trained = False
+
+        self.P = np.concatenate([to_numpy(self.P), P_new], axis=0)
+        cnt, scl = self.P_cnt[0], self.P_scl[0]
+        P0_new = (as_tensor(P_new, self.device, dtype=self.P0.dtype)
+                  - cnt[None, :]) / scl[None, :]
+        self.P0 = torch.cat([self.P0, P0_new], dim=0)
+
+        if not trained:
+            if rank_changed and retrain:
+                # no (r_old, ...) stacks to start from: train afresh with
+                # the saved specs, a multitask likelihood at the new rank
+                likelihood = self.likelihood
+                if hasattr(likelihood, "num_tasks"):
+                    likelihood = type(likelihood)(num_tasks=self.r)
+                self.train(mean=self.mean, kernel=self.kernel,
+                           likelihood=likelihood, max_iter=self.max_iter,
+                           rel_error=self.rel_error, lr=self.lr,
+                           verbose=verbose,
+                           engine=getattr(self, "engine", "device"))
+            elif retrain:
+                # a never-trained model has no hyperparameters (or
+                # max_iter/lr) to start from
+                raise ValueError(
+                    "update_basis(retrain=True) needs a trained model — "
+                    "call train() first, or retrain=False and train() "
+                    "after the update.")
+            return
+
+        P0_tot, Vr_tot = self.P0, self.Vr
+        self._train_X = P0_tot
+        self._train_Y = Vr_tot
+        if retrain:
+            if self.gpr_type == "MultiTask":
+                self.params, res = self._multitask_adam(self.params, P0_tot,
+                                                        Vr_tot)
+            else:
+                res = self._single_task_adam(self.params, self.likelihood,
+                                             P0_tot, Vr_tot)
+                self.params = res.params
+            self._final_loss = res.loss
+            self._iterations = res.iterations
+
+        # the prior stddev over the whole set at the (possibly retrained)
+        # hyperparameters, as update() keeps it
+        task_params = (self.params["tasks"] if self.gpr_type == "MultiTask"
+                       else self.params)
+        self.Vr_sigma = self._prior_stddev_all(task_params, P0_tot)
+        self._refresh_api_compat()
 
 
 class PIGPR(GPR):
@@ -676,6 +799,22 @@ class PIGPR(GPR):
                                           P0).T
         self._refresh_api_compat()
         return self.models, self.likelihoods
+
+    def update_basis(self, X_new, P_new, select_modes: str = "number",
+                     n_modes=None, reorth: bool = True,
+                     retrain: bool = False, verbose: bool = False):
+        """Basis and training-set assimilation (see
+        :meth:`GPR.update_basis`).  ``retrain=True`` is rejected: the
+        standard loop would drop the physics-informed added loss — call
+        :meth:`train` after the update instead."""
+        if retrain:
+            raise ValueError(
+                "PIGPR.update_basis cannot retrain with the standard loop "
+                "(it would drop the added-loss term); update with "
+                "retrain=False and call train() again.")
+        super().update_basis(X_new, P_new, select_modes=select_modes,
+                             n_modes=n_modes, reorth=reorth,
+                             retrain=False, verbose=verbose)
 
     def compute_mll(self, mean=None, kernel=None, likelihood=None):
         """The training data's MLL and the posterior mean at [train +

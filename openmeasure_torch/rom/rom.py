@@ -11,8 +11,15 @@ the JAX package's deviation from the reference: the leave-one-out
 influence uses the intended rank-1 projector, and the sampling call does
 not overwrite the fitted scaling statistics.
 
-Not ported in this slice, raising ``NotImplementedError`` naming its
-ROADMAP.md item: ``update_basis`` (A.14, incremental SVD).
+``update_basis`` folds new snapshots into the basis by Brand's
+rank-additive SVD update (:mod:`..linalg.incremental`): narrow panel
+passes on the model's device around a float64 core SVD on the host, with
+the scaling statistics frozen.
+
+A measurement operator (``apply_sampling``, ``reconstruct(sampling=…)``,
+``SPR.train``) may be dense (a numpy array or tensor), ``scipy.sparse``, or
+a torch sparse COO or CSR tensor, the port's counterpart of the JAX
+package's BCOO: its product runs on the model's device.
 """
 
 from __future__ import annotations
@@ -29,14 +36,43 @@ from ..linalg import boxls as _boxls
 from ..linalg import svd as _svd
 
 
+def is_torch_sparse(x) -> bool:
+    """True for a torch sparse COO or CSR tensor."""
+    return isinstance(x, torch.Tensor) and x.layout in (torch.sparse_coo,
+                                                        torch.sparse_csr)
+
+
+def torch_sparse_to_scipy(C) -> sp.csr_matrix:
+    """Host float64 ``scipy.sparse`` copy of a torch sparse COO or CSR
+    tensor, duplicate entries summed and explicit zeros dropped."""
+    if C.layout == torch.sparse_csr:
+        out = sp.csr_matrix((to_numpy(C.values()).astype(np.float64),
+                             to_numpy(C.col_indices()),
+                             to_numpy(C.crow_indices())), shape=tuple(C.shape))
+    else:
+        C = C.coalesce()
+        idx = to_numpy(C.indices())
+        out = sp.csr_matrix((to_numpy(C.values()).astype(np.float64),
+                             (idx[0], idx[1])), shape=tuple(C.shape))
+    out.sum_duplicates()
+    out.eliminate_zeros()
+    return out
+
+
 def apply_sampling(sampling, M: torch.Tensor) -> torch.Tensor:
     """Apply a measurement/sampling operator to an (n, ...) tensor.
 
-    ``sampling`` may be dense (numpy array or tensor) or a
-    ``scipy.sparse`` matrix; the sparse product runs on the host, as in the
-    JAX package, and the result lands on M's device."""
+    ``sampling`` may be dense (numpy array or tensor), a ``scipy.sparse``
+    matrix (its product runs on the host, as in the JAX package, and the
+    result lands on M's device), or a torch sparse COO or CSR tensor (its
+    product runs on M's device, in M's dtype)."""
     if sp.issparse(sampling):
         return as_tensor(sampling.dot(to_numpy(M)), M.device)
+    if is_torch_sparse(sampling):
+        S = sampling.to(device=M.device, dtype=M.dtype)
+        if M.ndim == 1:
+            return (S @ M[:, None])[:, 0]
+        return S @ M
     S = as_tensor(sampling, M.device)
     if S.dtype != M.dtype:
         S = S.to(M.dtype)
@@ -331,10 +367,67 @@ class ROM:
         return sample[np.argmax(pot), :]
 
     # ------------------------------------------------------------------ #
-    # Later slices
+    # Incremental basis update
     # ------------------------------------------------------------------ #
 
-    def update_basis(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ROM.update_basis (incremental SVD) is not ported yet "
-            "(ROADMAP.md §A item 14).")
+    def update_basis(self, X_new, select_modes: str = "number",
+                     n_modes=None, reorth: bool = True):
+        """Append new snapshots ``X_new`` (n, q) or (n,) and update the POD
+        basis incrementally by Brand's rank-additive SVD update
+        (:func:`..linalg.incremental.svd_append_columns_eager`): narrow
+        (n, r+q) panel passes on the model's device and a float64 core SVD
+        on the host, with no re-read of the original snapshots.  It is
+        exact (to round-off) for the rank-r matrix the current
+        factorization represents.
+
+        * The scaling statistics are frozen: ``X_new`` is scaled with the
+          statistics of :meth:`fit`.
+        * ``n_modes=None`` keeps the rank r; otherwise ``select_modes`` and
+          ``n_modes`` choose as in :meth:`fit` (``'variance'`` over the
+          retained energy only).
+        * Call it after :meth:`fit`: after :meth:`CPOD` the coefficients are
+          constrained projections, not ``V diag(S)``, and the update would
+          discard that.
+
+        Updates ``X, X0, Ur, Ar, Vr, Sigma_r, r`` in place."""
+        if not hasattr(self, "Ur"):
+            raise AttributeError(
+                "The fit function has to be called before update_basis.")
+        if not isinstance(X_new, torch.Tensor):
+            X_new = np.asarray(X_new)
+        if X_new.ndim == 1:
+            X_new = X_new[:, None]
+        if X_new.shape[0] != self.X.shape[0]:
+            raise ValueError(
+                f"X_new has {X_new.shape[0]} rows; expected "
+                f"{self.X.shape[0]} (the fitted snapshot dimension).")
+
+        Xn = self._t(X_new).to(self.Ur.dtype)
+        X0n = (Xn - self.X_cnt) / self.X_scl
+        self._update_basis_core(X0n, select_modes, n_modes, reorth)
+
+        if isinstance(self.X, np.ndarray):
+            self.X = np.concatenate([self.X, to_numpy(X_new)], axis=1)
+        else:
+            self.X = torch.cat([self.X, Xn.to(device=self.X.device,
+                                              dtype=self.X.dtype)], dim=1)
+        if hasattr(self, "X0"):
+            self.X0 = torch.cat([self.X0, X0n], dim=1)
+
+    def _update_basis_core(self, X0n, select_modes, n_modes, reorth):
+        """Brand update of (Ur, Sigma_r, Vr) with the scaled columns X0n,
+        rank selection, attribute writes."""
+        from ..linalg import incremental as _inc
+        U2, S2, Vt2 = _inc.svd_append_columns_eager(
+            self.Ur, self.Sigma_r, self.Vr.T, X0n, reorth=reorth)
+        if n_modes is None:
+            r_new = min(self.r, S2.shape[0])
+        else:
+            exp_var = _svd.explained_variance(S2)
+            r_new = _svd.select_rank(exp_var, select_modes, n_modes,
+                                     S2.shape[0])
+        self.r = r_new
+        self.Ur = U2[:, :r_new]
+        self.Sigma_r = S2[:r_new]
+        self.Vr = Vt2.T[:, :r_new]
+        self.Ar = self.Vr * self.Sigma_r[None, :]

@@ -23,8 +23,12 @@ card) and ``'vdg'`` (vector probes, :mod:`.vector`).  Each returns C as a
 tensor on the model's device; the selected indices come back to the host
 in one read.
 
-Not ported in this slice, raising ``NotImplementedError`` naming its
-ROADMAP.md item: ``update_basis`` (A.14).
+``update_basis`` folds new snapshots into the basis (:meth:`ROM.update_basis`)
+and derives Theta again from the stored measurement operator.
+
+The operator C may be dense (numpy or tensor), ``scipy.sparse`` or a torch
+sparse COO or CSR tensor (the CTC projections); a torch sparse product runs
+on the model's device.
 """
 
 from __future__ import annotations
@@ -162,7 +166,8 @@ class SPR(ROM):
               admm_tol: float = 1e-9, admm_over_relax: float = 1.6,
               solver_config=None, constraints=None):
         """Store the measurement operator ``C`` (s, n) — dense (numpy or
-        tensor) or ``scipy.sparse`` — and ``Theta = C @ Ur``; with
+        tensor), ``scipy.sparse`` or torch sparse — and ``Theta = C @ Ur``;
+        with
         ``is_Theta=True``, ``C`` is Theta itself.  ``cond=True`` stores the
         condition number of Theta (host f64 SVD) as ``self.k``.
 
@@ -219,10 +224,26 @@ class SPR(ROM):
                                     compute_uv=False)
             self.k = float(S_theta[0] / S_theta[-1])
 
-    def update_basis(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SPR.update_basis (incremental SVD) is not ported yet "
-            "(ROADMAP.md §A item 14).")
+    def update_basis(self, X_new, select_modes: str = "number",
+                     n_modes=None, reorth: bool = True):
+        """Incremental basis update (see :meth:`ROM.update_basis`) that keeps
+        a trained sensor consistent: ``Theta = C @ Ur`` is derived again
+        from the stored measurement operator (the cached ``C @ X_cnt``
+        centering stays valid: the update freezes the scaling statistics).
+        A sensor trained with ``is_Theta=True`` supplied a Theta of the OLD
+        basis; it is dropped and :meth:`train` must be called again."""
+        super().update_basis(X_new, select_modes=select_modes,
+                             n_modes=n_modes, reorth=reorth)
+        self._refresh_theta_after_update()
+
+    def _refresh_theta_after_update(self):
+        if getattr(self, "Theta", None) is not None:
+            self._cols_cache = None      # its box part was built on old Ur
+            if getattr(self, "C", None) is not None:
+                self.Theta = apply_sampling(self.C, self.Ur)
+            else:
+                del self.Theta           # is_Theta path: must re-train
+                self._needs_retrain = True
 
     def fit_predict(self, C, y, scale_type: str = "std",
                     select_modes: str = "variance", n_modes=99, **train_kw):
@@ -249,8 +270,9 @@ class SPR(ROM):
             if getattr(self, "_needs_retrain", False):
                 raise AttributeError(
                     "the trained sensor was invalidated (the basis "
-                    "changed after train(): a refit) — call train() again; "
-                    "the fitted basis is intact.")
+                    "changed after train(): a refit, or update_basis on "
+                    "an is_Theta=True sensor) — call train() again; the "
+                    "fitted basis is intact.")
             raise AttributeError("The function fit has to be called "
                                  "before calling predict.")
         if isinstance(y, (np.ndarray, torch.Tensor)):

@@ -37,8 +37,9 @@ Python loop over device tensors: a batch of K frames reads nothing back.
 
 Sharding the state over several cards (``shard``, ``shard_state_rows``)
 and loading ``.npz`` checkpoints (``load``) come with ROADMAP.md §A item
-14, and raise until then.  The JAX package's BCOO measurement operators
-are not taken (§A item 6).
+14, and raise until then.  A measurement operator may be dense,
+``scipy.sparse`` or a torch sparse COO or CSR tensor (the port's
+counterpart of the JAX package's BCOO).
 
 Documented deviation: ``GPRSensor.from_gpr`` casts the GP parameters and
 training set to the sensor's dtype (the basis's) on its device; the JAX
@@ -65,6 +66,7 @@ from .gp.exact_gp import tree_map
 from .gp.gpr import posterior_all_modes
 from .linalg import boxls as _boxls
 from .multifi.mfk import predict_levels_batch
+from .rom.rom import is_torch_sparse, torch_sparse_to_scipy
 from .sensing.decoder import _forward as _decoder_forward
 
 _ITEM_14 = "(ROADMAP.md §A item 14: sharding and checkpoints)"
@@ -138,12 +140,15 @@ def _predict_one(state, y_values, y_sigma, *, method, admm_iters,
 
 def _measurement_scaling(C, X_cnt, X_scl, n_points, feature_ids=None):
     """Per-measurement centering (``C @ X_cnt``) and scaling from a dense
-    (numpy or tensor) or ``scipy.sparse`` measurement operator, on the
-    host in float64 where the inputs are.
+    (numpy or tensor), ``scipy.sparse`` or torch sparse measurement
+    operator, on the host in float64 where the inputs are (a torch sparse
+    C is copied to the host first, its duplicates summed).
 
     A one-hot C (the QR placement) takes each measurement's scale from its
     selected row; a general C needs ``feature_ids`` (s,), the feature index
     of each measurement."""
+    if is_torch_sparse(C):
+        C = torch_sparse_to_scipy(C)
     if sp.issparse(C):
         cnt_sensors = np.asarray(C.dot(X_cnt)).ravel()
         # one-hot detection on the duplicate-summed form: two raw (i, j)
@@ -240,7 +245,8 @@ class SoftSensor:
                  admm_iters: int = 300,
                  admm_rho: str = "adaptive") -> "SoftSensor":
         """Package a trained :class:`openmeasure_torch.SPR` (after fit +
-        train) on the model's device.  C may be dense or ``scipy.sparse``.
+        train) on the model's device.  C may be dense, ``scipy.sparse`` or
+        torch sparse.
 
         A one-hot C (QR placement) gives the per-measurement scaling
         directly; a general C needs ``feature_ids`` (s,).  A model trained

@@ -4,7 +4,7 @@
 Run from the root of a checkout::
 
     python3 profile_torch.py [qrcp] [chol] [spr] [gp] [serving] [mfk]
-                             [placement] [dynamics]
+                             [placement] [dynamics] [ctc] [update]
 
 With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
 per call against k on random panels of the main path's shapes and layout
@@ -60,7 +60,19 @@ and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
   (hidden (40, 45), 20 epochs, on the QR placement's 14 sensors), one
   traced ``DecoderSensor.predict_batch`` and one traced
   ``DynamicSensor.filter_batch`` and ``smooth_batch`` of 50 frames: device
-  time by kind, launches per epoch or per frame, device-to-host copies.
+  time by kind, launches per epoch or per frame, device-to-host copies;
+* ``ctc``: at ``chip_smoke.py`` phase 19's scale (a 32³ grid, a 64×64
+  thin-lens camera with N_rand 8: 32,768 rays), one traced ``trace_rays``
+  (launches per DDA step), ``csr_from_cells`` on its cells (the two sorts
+  and the scatter), ``camera.project`` and the 4-view ``stack_cameras``, and a
+  served COLS batch of 50 frames on the rig's operator: device busy share,
+  device time by kind (elementwise, sorts, scatters, …), device-to-host
+  copies per call;
+* ``update``: on the fp32 model of ``chip_smoke.py`` phase 20 (165,258
+  rows, 38 snapshots, r = 14), one traced ``svd_append_columns_eager`` with
+  the 3 new scaled snapshots and one traced ``SPR.update_basis`` (rank
+  kept, so repeated calls do the same work): device time by kind, launches,
+  device-to-host copies.
 
 It needs a card and stops without one.  Every number it prints was
 measured on the card named on its first line.
@@ -83,10 +95,13 @@ CUBE = dict(n_cells=191511, n_features=N_FEATURES, m_train=45, m_test=4,
 # kind that matches wins
 KINDS = (("csrc/chol.cu", ("chol_inv_logdet",)),
          ("GEMM", ("gemm", "gemv", "cutlass", "xmma")),
+         ("sorts", ("sort",)),
+         ("scatters", ("scatter", "index_put")),
          ("factorizations and triangular solves",
-          ("potrf", "potrs", "trsm", "trsv", "geqrf", "orgqr", "ormqr",
+          ("potrf", "potrs", "trsm", "trsv", "geqr", "orgqr", "ormqr",
            "larf", "chol", "magma", "getrf", "getrs", "lu_")),
          ("copies", ("memcpy", "memset")),
+         ("concatenations", ("catarray",)),
          ("reductions", ("reduce",)),
          ("elementwise", ("elementwise", "vectorized", "unrolled", "where",
                           "clamp")))
@@ -126,7 +141,7 @@ def main() -> int:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     known = {"qrcp", "chol", "spr", "gp", "serving", "mfk", "placement",
-             "dynamics"}
+             "dynamics", "ctc", "update"}
     sections = set(sys.argv[1:]) or known
     unknown = sections - known
     if unknown:
@@ -503,6 +518,70 @@ def main() -> int:
             traced(f"DynamicSensor.{method}, 50 frames, σ = 0.05",
                    lambda method=method: getattr(ksensor, method)(Y, S), 50,
                    "frame")
+    if "ctc" in sections or "update" in sections:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", ROOT / "chip_smoke.py")
+        cs = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cs)
+    if "ctc" in sections:
+        from openmeasure_torch import SoftSensor, ctc
+        from openmeasure_torch.ctc import raytrace
+        grid = ctc.VoxelGrid.from_bounds(cs.CTC_BOUNDS, cs.CTC_DIMS)
+        steps = sum(cs.CTC_DIMS) + 3
+        cam = cs.ctc_camera(ctc.camera)
+        p1, p2, pix = cam._make_rays("thin_lens", 8, np.random.default_rng(0))
+        P1, P2 = (torch.as_tensor(p, dtype=torch.float32, device=dev)
+                  for p in (p1, p2))
+        PIX = torch.as_tensor(pix, dtype=torch.int32, device=dev)
+        print(f"CTC at chip_smoke.py phase 19's scale: a 32³ grid, "
+              f"{P1.shape[0]:,} thin-lens rays (64×64, N_rand 8), "
+              f"{steps} DDA steps", flush=True)
+        traced("trace_rays", lambda: raytrace.trace_rays(
+            P1, P2, grid.origin, grid.spacing, cs.CTC_DIMS), steps,
+            "DDA step")
+        cells = raytrace.trace_rays(P1, P2, grid.origin, grid.spacing,
+                                    cs.CTC_DIMS)[0]
+        traced("csr_from_cells (two sorts, the scatter)",
+               lambda: raytrace.csr_from_cells(
+                   cells, PIX, grid.n_cells, cam.n_pixels,
+                   out_cap=cam.n_pixels * max(cs.CTC_DIMS)), 1, "call")
+        traced("camera.project thin_lens, N_rand 8",
+               lambda: cam.project(grid, "thin_lens", 8, seed=0), 1, "call")
+        rig = cs.ctc_rig(ctc.camera)
+        traced("stack_cameras, 4 views × 64×64 parallel",
+               lambda: ctc.stack_cameras(rig, grid, "parallel", seed=0), 1,
+               "call")
+        C = ctc.stack_cameras(rig, grid, "parallel", seed=0)
+        xyz = grid.cell_centers()
+        X = cs.ctc_fields(xyz).astype(np.float32)
+        spr_c = SPR(X[:, :cs.CTC_TRAIN], 1, xyz)
+        spr_c.fit(select_modes="number", n_modes=cs.CTC_MODES)
+        spr_c.train(C, method="COLS", **cs.CTC_METHODS["COLS"])
+        sensor = SoftSensor.from_spr(
+            spr_c, feature_ids=np.zeros(C.shape[0], int),
+            admm_iters=cs.CTC_SERVE_ITERS).warmup()
+        F = torch.as_tensor(np.stack([C @ X[:, j % 12].astype(np.float64)
+                                      for j in range(50)]),
+                            dtype=torch.float32, device=dev)
+        traced(f"SoftSensor COLS on the rig, 50 frames, "
+               f"{cs.CTC_SERVE_ITERS} ADMM iterations",
+               lambda: sensor.predict_batch(F), 50, "frame")
+    if "update" in sections:
+        from openmeasure_torch.linalg import incremental
+        X, X_new, _, xyz, _, _, _ = cs.update_data()
+        spr_u = SPR(X, N_FEATURES, xyz)
+        spr_u.fit(select_modes="number", n_modes=R)
+        X0n = (torch.as_tensor(X_new, device=dev) - spr_u.X_cnt) \
+            / spr_u.X_scl
+        print(f"incremental update, chip_smoke.py phase 20's fp32 model "
+              f"({X.shape[0]:,} × {X.shape[1]}, r = {R}, 3 new snapshots)",
+              flush=True)
+        traced("svd_append_columns_eager",
+               lambda: incremental.svd_append_columns_eager(
+                   spr_u.Ur, spr_u.Sigma_r, spr_u.Vr.T, X0n), 1, "call")
+        traced("SPR.update_basis (rank kept)",
+               lambda: spr_u.update_basis(X_new), 1, "call")
     print(smi, flush=True)
     return 0
 

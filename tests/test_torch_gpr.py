@@ -208,10 +208,12 @@ def test_errors_and_unported_parts(flame):
         tg.predict(flame["P_test"], limits=[0.0, 1.0])
     with pytest.raises(NotImplementedError, match="MultiTask"):
         tg.predict(flame["P_test"], problem_dict={"bc": ([0], np.ones((1, 3)))})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ROM.update_basis(tg, flame["X_test"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tg.update_basis(flame["X_test"], flame["P_test"])
+    # update_basis is ported (tests/test_torch_incremental.py); its
+    # argument errors raise before any change
+    with pytest.raises(ValueError, match="rows"):
+        ROM.update_basis(tg, flame["X_test"][:-1])
+    with pytest.raises(Exception, match="number of parameters"):
+        tg.update_basis(flame["X_test"], flame["P_test"][:1])
     P_bad = np.array(flame["P_train"])
     P_bad[:, 1] = 2.0
     tb = TGPR(flame["X_train"], NF, flame["xyz"], P_bad, device="cpu")

@@ -38,6 +38,10 @@ def test_import_without_jax_in_a_fresh_process():
         "import openmeasure_torch.sensing.vector, openmeasure_torch.sensing.decoder\n"
         "import openmeasure_torch.dynamics.dmd, openmeasure_torch.dynamics.kalman\n"
         "import openmeasure_torch.datasets.flame, openmeasure_torch.utils.logging\n"
+        "import openmeasure_torch.ctc, openmeasure_torch.native\n"
+        "import openmeasure_torch.linalg.incremental\n"
+        "from openmeasure_torch.ctc import (camera, grid, projection, raytrace,\n"
+        "                                  resample, unstructured)\n"
         "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
         "       or m.startswith(('jax.', 'openmeasure_tpu.'))]\n"
         "assert sys.modules['jax'] is None and not bad, bad\n"
@@ -103,3 +107,24 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
                       np.zeros(3), np.eye(3))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         vector_onehot([0, 2], 2, 20)
+    from openmeasure_torch.ctc import VoxelGrid, resample_to_grid
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VoxelGrid((0, 0, 0), (1, 1, 1), (2, 2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VoxelGrid.from_bounds((0, 1, 0, 1, 0, 1), (2, 2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resample_to_grid(np.random.default_rng(2).random((20, 3)),
+                         np.ones((20, 1)), [3, 3, 3])
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """The port's sources name no path inside the JAX package: its native
+    build compiles its own copy of the ray caster."""
+    from openmeasure_torch import _build
+    assert _build.NATIVE == ROOT / "openmeasure_torch" / "native"
+    assert (_build.NATIVE / "raycast.cpp").is_file()
+    for path in PORT_FILES:
+        text = path.read_text()
+        # a path into the JAX package, as a string or joined with `/`
+        assert "openmeasure_tpu/native" not in text, path
+        assert 'openmeasure_tpu" /' not in text, path

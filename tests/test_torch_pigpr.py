@@ -168,8 +168,10 @@ def test_pigpr_refuses_host_engine_and_standard_retrain(pig_pair, flame):
     with pytest.raises(ValueError, match="PIGPR cannot retrain"):
         tp.update(flame["P_test"], np.zeros((3, R)), retrain=True)
     assert tp._train_X.shape[0] == n0          # rejected before any change
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tp.update_basis(flame["X_test"], flame["P_test"])
+    with pytest.raises(ValueError, match="PIGPR.update_basis cannot "
+                                         "retrain"):
+        tp.update_basis(flame["X_test"], flame["P_test"], retrain=True)
+    assert tp.P0.shape[0] == n0                # rejected before any change
 
 
 def _trained_pair(flame, gpr_type, engine="device"):
