@@ -64,7 +64,20 @@ paths through their user entry points:
   ``SPR.update_basis`` (38 + 3 snapshots, r = 14 → 15), the placement after
   it (a ``csrc/qrcp.cu`` launch), fp32 against float64 in the singular
   values, the principal angles and the held-out NRMSE against a full
-  refit, and ``GPR.update_basis(retrain=True)`` (``csrc/chol.cu``).
+  refit, and ``GPR.update_basis(retrain=True)`` (``csrc/chol.cu``);
+* the out-of-core tier (phases 21–25), from ``.npy`` files written under
+  ``build/`` and deleted at the end: the 3D set (1,723,599 rows × 45) as
+  one matrix file and as 45 column files, fitted by ``StreamingSPR`` with
+  the host engine on both layouts and the device engine on one, each
+  held per mode (σ and the principal angle) against the card's float64
+  fit; its ``optimal_placement('qr')`` (one ``csrc/qrcp.cu`` launch at the
+  3D width, equal to the plain sweep), train, predict and reconstruct; the
+  fit's walls with prefetch 2 and 0, a bare disk pass and the upload;
+  ``median`` scaling from column files in chunks that cut feature blocks,
+  equal to the in-core ``scale_data``; ``StreamingGPR`` at flagship width
+  (``csrc/chol.cu``) against its float64 run; ``save_model`` of both
+  models and ``SoftSensor.load``/``GPRSensor.load`` on the card, equal to
+  the sensors built in memory; ``StreamingDMD`` against the in-core DMD.
 
 The QRCP kernel is held bit-equal to the plain sweep (a panel with a NaN
 entry, and k > n, included), and ``qrcp_pivots_auto`` must launch it and
@@ -259,6 +272,22 @@ UPD_ANGLE_RESOLVED = 1e-2
 UPD_ANGLE_FACTOR = 4.0
 UPD_ANGLE_DK = 32.0
 UPD_NRMSE_SLACK = 1.10
+# the out-of-core tier (phases 21-25).  A streamed fit against the card's
+# float64 fit, per mode k: the host engine's products are float64, so only
+# the fp32 statistics and storage round, and each mode is held to
+# |Δσ|/σ₁ ≤ STREAM_DK·eps32 and to an angle ≤ STREAM_DK·eps32·σ₁/gap_k
+# (Davis–Kahan; the constant of phase 20).  The device engine's first Gram
+# is fp32 (an error ~eps32·σ₁²), so it is held to the same bound for a
+# Gram: an angle ≤ STREAM_DK·eps32·σ₁²/(σ_k² − σ_(k±1)²) and |Δσ|/σ₁ ≤
+# STREAM_DK·eps32·σ₁/σ_k; its width-limited refine (the JAX design) cannot
+# recover a mode under that error.  A bar is capped at STREAM_ANGLE_CAP rad,
+# so a wrong column fails also where the bound is loose; the device engine's
+# angle is not held at a mode whose Gram bar reaches π/2 (the bound cannot
+# say that mode is resolved there), and the log says "not held".  Median
+# chunks of a size that cuts the flagship's 18,362-row blocks.
+STREAM_DK = 32.0
+STREAM_ANGLE_CAP = 0.05
+STREAM_MEDIAN_ROWS = 10_007
 
 
 def gem_entropy(U, sel):
@@ -920,6 +949,395 @@ def update_phase(h):
     if gp["fp32"][1] < 1:
         fail("the fp32 GPR retrain never launched csrc/chol.cu")
     return n_qrcp, gp["fp32"][1]
+
+
+def streaming_phase(h):
+    """Phases 21–25: the out-of-core tier on the card, from ``.npy`` files
+    written to a temporary directory under ``build/`` and deleted at the
+    end, also when a phase fails.  Returns (qrcp launches at the 3D
+    width, chol launches)."""
+    import shutil
+    import tempfile
+    (ROOT / "build").mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-stream-",
+                                dir=ROOT / "build"))
+    try:
+        return _streaming_phases(h, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        h.log(f"  deleted the temporary .npy files under build/{tmp.name}")
+
+
+def _evict(path):
+    """Drop ``path``'s pages from the page cache (written back first), so
+    the next read comes from the disk; a no-op on a RAM-backed file
+    system."""
+    import os
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def overlap_check(h, path, m, timed):
+    """Whether the reader thread overlaps a disk pass with the caller's
+    host work: the fit's per-chunk float64 Gram, timed alone on chunks in
+    memory, the bare pass alone, and the two together with prefetch 0
+    (sequential) and 2, from the page cache and from a cold cache.  The
+    share of the shorter part that prefetch 2 hides is
+    (prefetch 0 − prefetch 2) / min(read, compute).  Measured, not held."""
+    import numpy as np
+    from openmeasure_torch.streaming import iter_chunks, open_store
+
+    st = open_store(path)
+    mem = [c.copy() for _, c in iter_chunks(st)]
+
+    def gram(chunks):
+        acc = np.zeros((m, m))
+        for c in chunks:
+            c64 = c.astype(np.float64)
+            acc += c64.T @ c64
+        return acc
+
+    def both(pf, cold):
+        if cold:
+            _evict(path)
+        return timed(lambda: gram(c for _, c in iter_chunks(st,
+                                                            prefetch=pf)))[1]
+
+    def read(cold):
+        if cold:
+            _evict(path)
+        return timed(lambda: [None for _ in iter_chunks(st)])[1]
+
+    comp = statistics.median(timed(lambda: gram(mem))[1] for _ in range(3))
+    for cold in (False, True):
+        t = {"read": [], 0: [], 2: []}
+        for _ in range(3):
+            t["read"].append(read(cold))
+            t[2].append(both(2, cold))
+            t[0].append(both(0, cold))
+        rd, p0, p2 = (statistics.median(t[k]) for k in ("read", 0, 2))
+        h.log(f"  prefetch overlap, {'cold cache' if cold else 'page cache'}"
+              f" ({len(mem)} chunks, medians of 3): disk pass alone "
+              f"{rd:.1f} ms, per-chunk float64 Gram alone {comp:.1f} ms; "
+              f"both with prefetch 0 {p0:.1f} ms, prefetch 2 {p2:.1f} ms; "
+              f"hidden share of the shorter part "
+              f"{(p0 - p2) / min(rd, comp):.3f}")
+    del mem
+
+
+def _streaming_phases(h, tmp):
+    import numpy as np
+    import torch
+    from openmeasure_torch import (DMD, ROM, SPR, GPRSensor, SoftSensor,
+                                   StreamingDMD, StreamingGPR, StreamingROM,
+                                   StreamingSPR)
+    from openmeasure_torch.linalg import qrcp as plain
+    from openmeasure_torch.streaming import iter_chunks, open_store
+    from openmeasure_torch.utils.checkpoint import load_model, save_model
+    from openmeasure_torch.utils.metrics import nrmse
+
+    dev, log, fail = h.dev, h.log, h.fail
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    eps32 = float(np.finfo(np.float32).eps)
+    cube, flag = h.cube, h.flag
+    nf, r = 9, 14
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def spread(v):
+        return (f"min {min(v):.1f}, median {statistics.median(v):.1f}, "
+                f"max {max(v):.1f} ms")
+
+    # ---- phase 21: the 3D set from disk --------------------------------
+    X = cube["X_train"]
+    n, m = X.shape
+    mat = tmp / "cube.npy"
+    (_, ms_w) = timed(lambda: np.save(mat, X))
+    cols = []
+    t0 = time.perf_counter()
+    for k in range(m):
+        cols.append(str(tmp / f"cube_{k:02d}.npy"))
+        np.save(cols[-1], X[:, k])
+    ms_c = (time.perf_counter() - t0) * 1e3
+    log(f"phase 21: the 3D set from disk ({n:,} rows × {m} snapshots, fp32: "
+        f"one matrix .npy of {mat.stat().st_size / 1e6:.1f} MB written in "
+        f"{ms_w:.0f} ms, and {m} column files in {ms_c:.0f} ms); "
+        f"StreamingSPR(device='cuda').fit(select_modes='number', "
+        f"n_modes={r}), the host engine on both layouts and the device "
+        f"engine on the matrix, against the in-core SPR fit on the card and "
+        f"a float64 fit")
+
+    def sfit(src, engine="host", prefetch=2):
+        s = StreamingSPR(src, nf, cube["xyz"], prefetch=prefetch, device=dev)
+        _, ms = timed(lambda: s.fit(select_modes="number", n_modes=r,
+                                    engine=engine))
+        return s, ms
+
+    inc = {}
+    for tag, dt in (("fp32", np.float32), ("float64", np.float64)):
+        s = SPR(X.astype(dt), nf, cube["xyz"], device=dev)
+        s.fit(select_modes="number", n_modes=r)
+        inc[tag] = (s.Ur.double().cpu().numpy(),
+                    s.Sigma_r.double().cpu().numpy())
+        del s
+    U64, S64 = inc["float64"]
+
+    fits = {}
+    for tag, src, engine in (("host, matrix file", str(mat), "host"),
+                             ("host, column files", cols, "host"),
+                             ("device, matrix file", str(mat), "device")):
+        box = []
+        kern_n, dtoh = h.trace_counts(lambda: box.append(sfit(src, engine)))
+        s, ms = box[0]
+        fits[tag] = s
+        log(f"  {tag}: fit {ms:.1f} ms (traced), {s.disk_passes_} disk "
+            f"passes, fused Gram {s.gram_fused_}, {s.bytes_uploaded_:,} "
+            f"bytes uploaded, device reads {s.device_reads_} (trace: "
+            f"{dtoh} device-to-host copies, "
+            f"{'not measured' if kern_n is None else kern_n} device kernels)")
+    # the float64 spectrum's gaps (the host engine's full-width float64
+    # Gram), for the Davis–Kahan bars eps32·σ₁/gap
+    Sf = fits["host, matrix file"]._S_full
+    gaps = np.array([min(Sf[k - 1] - Sf[k] if k else np.inf,
+                         Sf[k] - Sf[k + 1]) for k in range(r)])
+    gaps2 = np.array([min(Sf[k - 1] ** 2 - Sf[k] ** 2 if k else np.inf,
+                          Sf[k] ** 2 - Sf[k + 1] ** 2) for k in range(r)])
+    dk = eps32 * S64[0] / gaps
+
+    def per_mode(U, S):
+        cos = np.abs(np.sum(U * U64, axis=0)) / (
+            np.linalg.norm(U, axis=0) * np.linalg.norm(U64, axis=0))
+        return np.abs(S - S64) / S64[0], np.arccos(np.clip(cos, 0.0, 1.0))
+
+    sig32, ang32 = per_mode(*inc["fp32"])
+    log("  in-core fp32 SPR fit against float64, per mode k = 1…14: "
+        "|Δσ|/σ₁ " + ", ".join(f"{v:.2e}" for v in sig32)
+        + "; angle (rad) " + ", ".join(f"{v:.2e}" for v in ang32))
+    log("  eps32·σ₁/gap per mode (float64 spectrum): "
+        + ", ".join(f"{v:.2e}" for v in dk))
+    for tag, s in fits.items():
+        sig, ang = per_mode(s.Ur.double().cpu().numpy(),
+                            s.Sigma_r.double().cpu().numpy())
+        if tag.startswith("host"):
+            # float64 products: only the fp32 statistics and storage round
+            sig_bar = np.full(r, STREAM_DK * eps32)
+            bound = STREAM_DK * dk
+            held = np.ones(r, bool)
+        else:
+            # an fp32 first Gram: the bound for a Gram's eigenvectors
+            sig_bar = STREAM_DK * eps32 * Sf[0] / Sf[:r]
+            bound = STREAM_DK * eps32 * Sf[0] ** 2 / gaps2
+            held = bound < np.pi / 2
+        ang_bar = np.minimum(bound, STREAM_ANGLE_CAP)
+        log(f"  {tag} against float64, per mode: |Δσ|/σ₁ "
+            + ", ".join(f"{v:.2e}" for v in sig) + "; |cos| "
+            + ", ".join(f"{np.cos(v):.9f}" for v in ang)
+            + f"; angle / its bar (min(bound, {STREAM_ANGLE_CAP} rad)) "
+            + ", ".join(f"{a / b:.3f}" if h_ else
+                        f"not held (bound {bd:.2e} rad)"
+                        for a, b, bd, h_ in zip(ang, ang_bar, bound, held)))
+        bad = [k + 1 for k in range(r)
+               if not (sig[k] <= sig_bar[k]
+                       and (ang[k] <= ang_bar[k] or not held[k]))]
+        if bad:
+            fail(f"streaming fit ({tag}) departs from float64 at modes {bad}")
+    if not torch.equal(fits["host, matrix file"].Ur,
+                       fits["host, column files"].Ur):
+        fail("the two on-disk layouts gave different bases")
+
+    sm = fits["host, matrix file"]
+    C, n_qr = h.counted(lambda: sm.optimal_placement())
+    eq, pk, pp, err, _, same_nf = h.kernel_vs_plain(sm.Ur.T, r, None)
+    rows = C.argmax(dim=1).cpu().numpy()
+    want = plain.qrcp_pivots(sm.Ur.T, r).cpu().numpy()
+    log(f"  optimal_placement('qr') on the streamed basis {tuple(sm.Ur.T.shape)}"
+        f": csrc/qrcp.cu launches {n_qr}, pivots equal to the plain sweep on "
+        f"the same Ur={bool(np.array_equal(rows, want))} (kernel_vs_plain "
+        f"{eq}, final norms equal {err == 0.0 and same_nf})")
+    if n_qr != 1 or not (eq and np.array_equal(rows, want)
+                         and np.array_equal(pk, rows)):
+        fail("the streamed model's placement is not one csrc/qrcp.cu launch "
+             "equal to the plain sweep")
+    sm.train(C)
+    T3 = cube["X_test"]
+    ys = [np.column_stack([T3[rows, j], np.zeros(r), rows // (n // nf)])
+          for j in range(T3.shape[1])]
+    a, _ = sm.predict(ys)
+    xr = sm.reconstruct(a)
+    nr3 = float(nrmse(xr.double(), torch.as_tensor(T3, dtype=torch.float64,
+                                                   device=dev)))
+    log(f"  train → predict → reconstruct the {T3.shape[1]} held-out "
+        f"snapshots: NRMSE {nr3:.4e} (≤ {NRMSE_3D_MAX})")
+    if tuple(xr.shape) != T3.shape or not bool(torch.isfinite(xr).all()) \
+            or not nr3 <= NRMSE_3D_MAX:
+        fail(f"3D streamed reconstruction NRMSE {nr3:.3e}")
+
+    # walls: 3 fits each, prefetch 2 and 0 and the device engine in
+    # turns; bare disk passes
+    walls = {2: [], 0: [], "device": []}
+    for _ in range(3):
+        for pf in (2, 0):
+            walls[pf].append(sfit(str(mat), prefetch=pf)[1])
+        walls["device"].append(sfit(str(mat), "device")[1])
+    passes = {}
+    for tag, src in (("matrix file", str(mat)), ("column files", cols)):
+        st = open_store(src)
+        passes[tag] = [timed(lambda: [None for _ in iter_chunks(st)])[1]
+                       for _ in range(3)]
+    up = timed(lambda: torch.as_tensor(np.empty((n, r), np.float32)
+                                       ).to(dev))[1]
+    overlap_check(h, str(mat), m, timed)
+    med = statistics.median(walls[2])
+    disk = statistics.median(passes["matrix file"])
+    log(f"  host-engine fit from the matrix file, 3 fits: prefetch 2 "
+        f"{spread(walls[2])}; prefetch 0 {spread(walls[0])} (prefetch 0 / 2 "
+        f"= {statistics.median(walls[0]) / med:.3f}); {n / (med / 1e3):,.0f} "
+        f"rows a second; the device engine {spread(walls['device'])}")
+    log(f"  one bare disk pass (iter_chunks, 64 MiB chunks, prefetch 2): "
+        f"matrix file {spread(passes['matrix file'])}, column files "
+        f"{spread(passes['column files'])}; the (n, r) upload alone "
+        f"{up:.1f} ms; so of the fit's {med:.1f} ms: 2 disk passes "
+        f"{2 * disk:.1f}, upload {up:.1f}, the rest ({med - 2 * disk - up:.1f}"
+        f") host float64 BLAS and statistics beside the reads")
+
+    # ---- phase 22: median scaling from column files -----------------------
+    F = flag["X_train"]
+    fcols = []
+    for k in range(F.shape[1]):
+        fcols.append(str(tmp / f"flag_{k:02d}.npy"))
+        np.save(fcols[-1], F[:, k])
+    rows_chunk = STREAM_MEDIAN_ROWS
+    log(f"phase 22: median scaling at flagship width from {len(fcols)} "
+        f"column files, chunks of {rows_chunk:,} rows (feature blocks of "
+        f"{F.shape[0] // nf:,} rows, so chunks cut blocks); X_scl must equal "
+        f"the in-core scale_data('median') exactly")
+    sr = StreamingROM(fcols, nf, flag["xyz"], chunk_rows=rows_chunk,
+                      device=dev)
+    _, ms = timed(lambda: sr.fit(scale_type="median", select_modes="number",
+                                 n_modes=r))
+    ic = ROM(F, nf, flag["xyz"], device=dev)
+    ic.scale_data("median")
+    same = bool(torch.equal(sr.X_scl, ic.X_scl))
+    log(f"  streamed median fit {ms:.1f} ms, {sr.disk_passes_} disk passes; "
+        f"X_scl equal to the in-core one={same}; max |ΔX_cnt| "
+        f"{float((sr.X_cnt - ic.X_cnt).abs().max()):.3e} (row means: "
+        f"float64 then fp32 against fp32 on the card)")
+    if not same:
+        fail("streamed median X_scl differs from the in-core scale_data")
+
+    # ---- phase 23: the GP from disk --------------------------------------
+    fmat = tmp / "flag.npy"
+    np.save(fmat, F)
+    log(f"phase 23: StreamingGPR at flagship width from the matrix file "
+        f"({F.shape[0]:,} × {F.shape[1]}, P_train {flag['P_train'].shape}), "
+        f"train (up to 1000 Adam iterations, csrc/chol.cu), predict; fp32 "
+        f"against the float64 run")
+    gps, n_chol = {}, 0
+    T64 = torch.as_tensor(flag["X_test"], dtype=torch.float64, device=dev)
+    for tag, dt in (("fp32", np.float32), ("float64", np.float64)):
+        g = StreamingGPR(str(fmat), nf, flag["xyz"], flag["P_train"],
+                         dtype=dt, device=dev)
+        _, ms_fit = timed(lambda: g.fit(select_modes="number", n_modes=r))
+        (_, n), ms_tr = timed(lambda: h.chol_counted(lambda: g.train()))
+        if tag == "fp32":
+            n_chol = n
+        A, _ = g.predict(flag["P_test"])
+        nr = float(nrmse(g.reconstruct(A).double(), T64))
+        gps[tag] = g
+        log(f"  {tag}: fit {ms_fit:.1f} ms, train {ms_tr:.1f} ms ({n} "
+            f"csrc/chol.cu launches, Adam iterations "
+            f"{g._iterations.tolist()}), held-out NRMSE {nr:.6e}")
+        gps[tag + " nrmse"] = nr
+    g32 = gps["fp32"]
+    K = h.gp_matrices(g32)
+    (eqk, dkk, dl), _ = h.chol_errors(K)
+    log(f"  csrc/chol.cu vs chol_inv_logdet_plain on the trained model's "
+        f"matrices {tuple(K.shape)}: equal={eqk}")
+    if not eqk:
+        fail("csrc/chol.cu differs from its plain version on the streamed "
+             "GP's matrices")
+    if n_chol < 1:
+        fail("the streamed GP never launched csrc/chol.cu")
+    if not gps["fp32 nrmse"] <= GPR_NRMSE_SLACK * gps["float64 nrmse"]:
+        fail(f"streamed fp32 GP NRMSE {gps['fp32 nrmse']:.4e} against "
+             f"float64's {gps['float64 nrmse']:.4e}")
+
+    # ---- phase 24: checkpoints -------------------------------------------
+    log(f"phase 24: save_model of the 3D StreamingSPR and the flagship "
+        f"StreamingGPR, then SoftSensor.load and GPRSensor.load on the card; "
+        f"a batch of {SERVE_BATCH} must predict torch.equal to the sensor "
+        f"built in memory")
+    rng = np.random.default_rng(24)
+    Yb = np.stack([T3[rows, j % T3.shape[1]] for j in range(SERVE_BATCH)])
+    Yb = Yb * (1.0 + 1e-3 * rng.standard_normal(Yb.shape)).astype(Yb.dtype)
+    Pb = flag["P_test"][rng.integers(0, flag["P_test"].shape[0],
+                                     SERVE_BATCH)] \
+        * (1.0 + 0.01 * rng.standard_normal((SERVE_BATCH, 3)))
+    for tag, model, mk, load, arg in (
+            ("StreamingSPR 3D", sm, SoftSensor.from_spr, SoftSensor.load,
+             Yb),
+            ("StreamingGPR flagship", g32, GPRSensor.from_gpr,
+             GPRSensor.load, Pb)):
+        path = tmp / f"{tag.split()[0]}.npz"
+        _, ms_s = timed(lambda: save_model(model, str(path)))
+        loaded, ms_l = timed(lambda: load(str(path), device=dev))
+        ref = mk(model)
+        out_l = (loaded.predict_batch(arg) if hasattr(loaded,
+                                                      "predict_batch")
+                 else loaded(arg))[0]
+        out_r = (ref.predict_batch(arg) if hasattr(ref, "predict_batch")
+                 else ref(arg))[0]
+        eqs = bool(torch.equal(out_l, out_r))
+        back = load_model(str(path), device=dev)
+        log(f"  {tag}: checkpoint {path.stat().st_size / 1e6:.1f} MB, saved "
+            f"in {ms_s:.0f} ms, loaded into a sensor in {ms_l:.0f} ms "
+            f"(restores as {type(back).__name__} on {back.Ur.device}); batch "
+            f"of {SERVE_BATCH} {tuple(out_l.shape)} equal to the in-memory "
+            f"sensor's={eqs}")
+        if not eqs or out_l.device.type != dev.type:
+            fail(f"the loaded {tag} sensor differs from the one built in "
+                 "memory")
+
+    # ---- phase 25: StreamingDMD ------------------------------------------
+    Xs, Xs_test, xyz_s, _ = dynamics_series()
+    dmat = tmp / "dynamics.npy"
+    np.save(dmat, Xs)
+    log(f"phase 25: StreamingDMD on phase 18's series ({Xs.shape[0]:,} × "
+        f"{Xs.shape[1]}, from a matrix file) against the in-core DMD, "
+        f"n_modes 8")
+    sd = StreamingDMD(str(dmat), 2, xyz_s, device=dev)
+    _, ms = timed(lambda: sd.fit(dt=1.0, select_modes="number", n_modes=8))
+    dd = {}
+    for tag, dt in (("fp32", np.float32), ("float64", np.float64)):
+        d_ = DMD(Xs.astype(dt), 2, xyz_s, device=dev)
+        d_.fit(dt=1.0, select_modes="number", n_modes=sd.r)
+        dd[tag] = d_
+
+    def top(d_):
+        return np.sort_complex(d_.eigs[np.argsort(-np.abs(d_.amplitudes))
+                                       [:6]])
+
+    err = {tag: float(np.max(np.abs(top(sd) - top(d_))))
+           for tag, d_ in dd.items()}
+    fc = float(nrmse(sd.forecast_horizon(10).double(),
+                     torch.as_tensor(Xs_test[:, :10], dtype=torch.float64,
+                                     device=dev)))
+    log(f"  fit {ms:.1f} ms, {sd.disk_passes_} disk passes, rank {sd.r}; the "
+        f"6 largest-amplitude eigenvalues against the in-core float64 DMD "
+        f"max|Δλ| {err['float64']:.3e} (≤ {DMD_EIG_ABS}), against fp32 "
+        f"{err['fp32']:.3e}; 10-step forecast NRMSE {fc:.4f} (< 0.2)")
+    if not (err["float64"] <= DMD_EIG_ABS and fc < 0.2):
+        fail("StreamingDMD departs from the in-core DMD")
+    return n_qr, n_chol
 
 
 def log(msg: str) -> None:
@@ -2463,6 +2881,15 @@ def main() -> int:
             r_["launches"] += n_qr20
         if r_["name"] == "chol_inv_logdet_cuda":
             r_["launches"] += n_chol20
+    h.cube, h.flag = cube, flag
+    t_phase = time.perf_counter()
+    n_qr21, n_chol23 = streaming_phase(h)
+    log(f"  phases 21-25 took {time.perf_counter() - t_phase:.1f} s")
+    for r_ in records:
+        if r_["name"] == "qrcp_pivots_cuda[3d]":
+            r_["launches"] += n_qr21
+        if r_["name"] == "chol_inv_logdet_cuda":
+            r_["launches"] += n_chol23
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

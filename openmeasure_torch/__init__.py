@@ -19,7 +19,10 @@ placements (``gem``, ``dg``, ``vdg``) and the shallow decoder
 time-ordered snapshot series.  ``update_basis`` folds new snapshots into a
 fitted basis (Brand's incremental SVD update).  ``openmeasure_torch.ctc``
 builds tomography operators: voxel grids traced on the card, unstructured
-meshes by a host C++ caster, cameras and rigs.  Module names, public
+meshes by a host C++ caster, cameras and rigs.  The ``Streaming*`` classes
+(``openmeasure_torch.streaming``) fit snapshot sets too large for memory
+from ``.npy`` files on disk, and ``utils.checkpoint`` saves a fitted model
+to one ``.npz`` that a sensor's ``load`` serves again.  Module names, public
 function names and array layouts follow ``openmeasure_tpu`` so each piece
 has an obvious counterpart.
 
@@ -30,6 +33,8 @@ has an obvious counterpart.
     from openmeasure_torch.pipelines import (spr_end_to_end, gpr_end_to_end,
                                              mfk_end_to_end)
     from openmeasure_torch.ctc import VoxelGrid, camera, stack_cameras
+    from openmeasure_torch import StreamingSPR, StreamingGPR, StreamingDMD
+    from openmeasure_torch.utils.checkpoint import save_model, load_model
 
 Every entry point takes ``device=None``, which means ``"cuda"``; with no
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run
@@ -61,17 +66,14 @@ __all__ = ["ROM", "SPR", "GPR", "PIGPR", "CoKriging", "MultiFiCoKriging",
            "CoKrigingSensor", "DecoderSensor", "DynamicSensor"]
 __version__ = "0.1.0"
 
-# Names of the JAX package's top level that later slices of the port bring
-# over, each with the ROADMAP.md §A item that ports it.
-_NOT_YET_PORTED = {
-    "StreamingROM": "A.14", "StreamingSPR": "A.14", "StreamingGPR": "A.14",
-    "StreamingPIGPR": "A.14", "StreamingDMD": "A.14",
-}
+_STREAMING = ("StreamingROM", "StreamingSPR", "StreamingGPR",
+              "StreamingPIGPR", "StreamingDMD")
+__all__ += list(_STREAMING)
 
 
 def __getattr__(name):
-    if name in _NOT_YET_PORTED:
-        raise AttributeError(
-            f"openmeasure_torch.{name} is not ported yet "
-            f"(ROADMAP.md §A item {_NOT_YET_PORTED[name]}).")
+    # the streaming classes load on first use, as in the JAX package
+    if name in _STREAMING:
+        from . import streaming
+        return getattr(streaming, name)
     raise AttributeError(f"module 'openmeasure_torch' has no attribute {name!r}")

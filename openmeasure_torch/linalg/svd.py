@@ -22,9 +22,16 @@ import numpy as np
 import torch
 
 
-def canonical_signs(U: torch.Tensor) -> torch.Tensor:
+
+def canonical_signs(U):
     """Per-column canonical sign flips: the largest-|.| entry of each
-    column made positive (zero sign → +1)."""
+    column made positive (zero sign → +1).  ``U`` is a tensor, or a numpy
+    array for host-side callers (the streaming fit's host engine); the
+    signs come back in U's kind and dtype."""
+    if isinstance(U, np.ndarray):
+        idx = np.argmax(np.abs(U), axis=0)
+        signs = np.sign(U[idx, np.arange(U.shape[1])])
+        return np.where(signs == 0, 1.0, signs).astype(U.dtype)
     idx = torch.argmax(torch.abs(U), dim=0)
     signs = torch.sign(U[idx, torch.arange(U.shape[1], device=U.device)])
     return torch.where(signs == 0, torch.ones_like(signs), signs)
@@ -43,19 +50,36 @@ def default_refine(device: torch.device) -> int:
     TPU, 2 elsewhere); the port keys it on the tensor's device, 1 on a
     CUDA card and 2 on the CPU.  On an H100 one pass already reaches the
     reconstruction NRMSE of two at the flagship and 3D sizes, and two cost
-    one more pair of panel passes (``profile_torch.py``, PERF.md); on the
-    CPU, LAPACK's fp32 eigensolver needs the second pass (the JAX
-    package's measurement)."""
+    one more pair of panel passes; a second pass also leaves the per-mode
+    consumers where they were: the trailing modes' errors against a
+    float64 fit, the placements' objectives on the float64 basis and the GP
+    NRMSE (``profile_torch.py refine``, PERF.md).  On the CPU, LAPACK's
+    fp32 eigensolver needs the second pass (the JAX package's
+    measurement)."""
     return 1 if device.type == "cuda" else 2
 
 
-def floored_norms(colnorm: torch.Tensor, n: int, dtype) -> torch.Tensor:
+def _finfo(dtype):
+    return torch.finfo(dtype) if isinstance(dtype, torch.dtype) \
+        else np.finfo(dtype)
+
+
+def floored_norms(colnorm, n: int, dtype, tiny_dtype=None):
     """The eps·max·√n rank-deficiency norm floor used by every
-    normalization in this module (with an absolute ``tiny`` floor)."""
-    fi = torch.finfo(dtype)
+    normalization in this module (with an absolute ``tiny`` floor).
+
+    ``eps`` is that of ``dtype``, the precision the norms were accumulated
+    in; ``tiny`` that of ``tiny_dtype`` (default ``dtype``), the storage
+    dtype they divide.  ``colnorm`` is a tensor, or a numpy array (the
+    streaming fit's host-float64 norms of an fp32 panel)."""
+    eps = float(_finfo(dtype).eps)
+    tiny = float(_finfo(dtype if tiny_dtype is None else tiny_dtype).tiny)
+    if isinstance(colnorm, np.ndarray):
+        return np.maximum(np.maximum(
+            colnorm, eps * float(n) ** 0.5 * np.max(colnorm)), tiny)
     return torch.clamp(
-        torch.maximum(colnorm, fi.eps * float(n) ** 0.5 * torch.amax(colnorm)),
-        min=fi.tiny)
+        torch.maximum(colnorm, eps * float(n) ** 0.5 * torch.amax(colnorm)),
+        min=tiny)
 
 
 def _eigh_desc(G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -235,3 +259,36 @@ def select_rank(exp_variance, select_modes: str, n_modes,
             raise ValueError("The parameter n_modes is outside the [1-m] range.")
         return n_modes
     raise ValueError("The select_mode value is wrong.")
+
+
+def randomized_svd(
+    X0: torch.Tensor, k: int, generator: Optional[torch.Generator] = None,
+    n_iter: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Randomized truncated SVD (Halko–Martinsson–Tropp) for wide snapshot
+    sets where the exact (m, m) Gram is no longer cheap: oversampling 10,
+    ``n_iter`` power iterations with QR re-orthogonalization between them.
+    Returns ``(U (n, k), S (k,), Vt (k, m))`` with canonical signs.
+
+    Ω (m, min(m, k + 10)) is standard normal, drawn by ``generator`` (a
+    ``torch.Generator`` on X0's device), or by a new one seeded with 0 when
+    none is given, as the JAX package defaults its key.  Documented
+    deviation: the JAX package draws Ω from ``jax.random`` (threefry), so
+    one seed gives another Ω; the factorization of X0 it approximates is
+    the same."""
+    n, m = X0.shape
+    p = min(m, k + 10)
+    if generator is None:
+        generator = torch.Generator(device=X0.device).manual_seed(0)
+    Omega = torch.randn((m, p), generator=generator, dtype=X0.dtype,
+                        device=X0.device)
+    Y = X0 @ Omega
+    for _ in range(n_iter):
+        Y, _ = torch.linalg.qr(Y)
+        Y = X0 @ (X0.T @ Y)
+    Q, _ = torch.linalg.qr(Y)
+    B = Q.T @ X0                                  # (p, m)
+    Ub, S, Vt = torch.linalg.svd(B, full_matrices=False)
+    U = Q @ Ub
+    U, Vt = _sign_canonicalize(U[:, :k], Vt[:k])
+    return U, S[:k], Vt

@@ -8,18 +8,31 @@ built with ``g++`` into ``build/openmeasure_torch/`` at first use
 (:func:`openmeasure_torch._build.load_library`); a failed build raises
 with the compiler's output.  Both functions return the hit pairs in an order
 that depends on the threads' schedule.
+
+``npyloader.cpp`` reads row chunks of ``.npy`` snapshot files for the
+out-of-core fit (:mod:`openmeasure_torch.streaming`): :func:`npy_probe`,
+:func:`read_rows_matrix` (one C-order (n, m) file, one ``pread`` a chunk)
+and :func:`read_rows_files` (m column files gathered by an OpenMP scatter
+transpose), each into a buffer the caller may give (pinned host memory
+for an upload to the card).  ctypes releases the GIL for the whole call.
+A file in a format the loader does not take (dtype, Fortran order, shape)
+raises :class:`NpyUnsupported`, and the streaming stores read it through
+numpy instead; any other failure (open, read, bounds) raises
+:class:`NpyLoaderError`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import _build
 
 _LIB = None
+_NPY_LIB = None
 
 _P_DOUBLE = ctypes.POINTER(ctypes.c_double)
 _P_INT64 = ctypes.POINTER(ctypes.c_int64)
@@ -118,3 +131,115 @@ def trace_segments_cells(points: np.ndarray, cells: np.ndarray,
             p1s.ctypes.data_as(_P_DOUBLE), p2s.ctypes.data_as(_P_DOUBLE),
             p1s.shape[0], out_r, out_c, cap),
         p1s.shape[0], "trace_segments_cells")
+
+
+# --------------------------------------------------------------------- #
+# npy row-chunk loader (npyloader.cpp)
+# --------------------------------------------------------------------- #
+
+_NPY_ERRORS = {
+    -1: "open failed", -2: "bad magic", -3: "bad header",
+    -4: "unsupported dtype (need <f4/<f8)", -5: "fortran order unsupported",
+    -6: "unsupported shape", -7: "row range out of bounds",
+    -8: "read failed", -9: "bad argument",
+}
+# the formats the loader does not take: the stores read these through numpy
+_NPY_UNSUPPORTED = (-4, -5, -6)
+
+
+class NpyLoaderError(RuntimeError):
+    """A failed native ``.npy`` read; ``code`` is the loader's error code."""
+
+    def __init__(self, code: int, what: str):
+        self.code = code
+        super().__init__(f"native npy loader: {what}: "
+                         f"{_NPY_ERRORS.get(code, f'error {code}')}")
+
+
+class NpyUnsupported(NpyLoaderError):
+    """The file is an ``.npy`` in a format the loader does not take."""
+
+
+def _npy_check(rc: int, what: str) -> None:
+    if rc != 0:
+        cls = NpyUnsupported if rc in _NPY_UNSUPPORTED else NpyLoaderError
+        raise cls(rc, what)
+
+
+def _npy() -> ctypes.CDLL:
+    global _NPY_LIB
+    if _NPY_LIB is None:
+        lib = _build.load_library("npyloader")
+        c_long, P_long = ctypes.c_long, ctypes.POINTER(ctypes.c_long)
+        lib.omtpu_npy_probe.restype = c_long
+        lib.omtpu_npy_probe.argtypes = [ctypes.c_char_p, P_long, P_long,
+                                        P_long, P_long]
+        lib.omtpu_read_rows_matrix.restype = c_long
+        lib.omtpu_read_rows_matrix.argtypes = [
+            ctypes.c_char_p, c_long, c_long, c_long, ctypes.c_void_p]
+        lib.omtpu_read_rows_files.restype = c_long
+        lib.omtpu_read_rows_files.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), c_long, c_long, c_long, c_long,
+            ctypes.c_void_p]
+        _NPY_LIB = lib
+    return _NPY_LIB
+
+
+def _out_buffer(out: Optional[np.ndarray], nrows: int, m: int,
+                dtype) -> np.ndarray:
+    dtype = np.dtype(dtype)
+    if dtype not in (np.float32, np.float64):
+        raise NpyUnsupported(-9, f"output dtype {dtype}")
+    if out is None:
+        return np.empty((nrows, m), dtype=dtype)
+    if out.shape != (nrows, m) or out.dtype != dtype \
+            or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous ({nrows}, {m}) "
+                         f"{dtype} array; got {out.shape} {out.dtype}")
+    return out
+
+
+def npy_probe(path: str) -> Tuple[int, Tuple[int, int], int]:
+    """Parse a .npy header natively.  Returns (itemsize, (n, m), offset);
+    1-D files report m = 1."""
+    item, ndim, off = ctypes.c_long(), ctypes.c_long(), ctypes.c_long()
+    shape = (ctypes.c_long * 2)()
+    rc = _npy().omtpu_npy_probe(os.fsencode(path), ctypes.byref(item),
+                                ctypes.byref(ndim), shape, ctypes.byref(off))
+    _npy_check(rc, path)
+    return int(item.value), (int(shape[0]), int(shape[1])), int(off.value)
+
+
+def read_rows_matrix(path: str, row0: int, nrows: int, m: int,
+                     dtype=np.float32,
+                     out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Rows [row0, row0 + nrows) of a C-order (n, m) .npy matrix file in
+    ``dtype`` (float32 or float64), into ``out`` when given.  One
+    contiguous pread."""
+    out = _out_buffer(out, nrows, m, dtype)
+    # the library writes nrows × the FILE's width: the buffer must match
+    m_file = npy_probe(path)[1][1]
+    if m_file != m:
+        raise ValueError(f"{path} has {m_file} columns, not {m}")
+    rc = _npy().omtpu_read_rows_matrix(os.fsencode(path), row0, nrows,
+                                       out.dtype.itemsize,
+                                       out.ctypes.data_as(ctypes.c_void_p))
+    _npy_check(rc, path)
+    return out
+
+
+def read_rows_files(paths: Sequence[str], row0: int, nrows: int,
+                    dtype=np.float32,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Rows [row0, row0 + nrows) gathered across per-snapshot column .npy
+    files into an (nrows, len(paths)) array (file j becomes column j), into
+    ``out`` when given.  Files are read in parallel (OpenMP) and
+    scatter-transposed natively."""
+    m = len(paths)
+    out = _out_buffer(out, nrows, m, dtype)
+    arr = (ctypes.c_char_p * m)(*[os.fsencode(p) for p in paths])
+    rc = _npy().omtpu_read_rows_files(arr, m, row0, nrows,
+                                      out.dtype.itemsize,
+                                      out.ctypes.data_as(ctypes.c_void_p))
+    _npy_check(rc, "column files")
+    return out

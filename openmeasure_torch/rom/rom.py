@@ -89,6 +89,46 @@ def scale_measurement_values(y, cnt_vector, scl_full, n_points):
     return (y[:, 0] - cnt_vector) / scl_vector, scl_vector
 
 
+def influence_candidate(S: torch.Tensor, V: torch.Tensor, P, seed=None):
+    """The DoE step of ``adaptive_sampling`` from a spectrum: ``S`` (p,)
+    singular values and ``V`` (p, p) right singular vectors (columns) of
+    the scaled snapshots.  Leave-one-out influence of each snapshot ×
+    distance of Latin-hypercube candidates to the nearest sampled point;
+    returns the candidate (d,) of largest potential."""
+    from scipy.stats import qmc
+
+    p = V.shape[0]
+    eye = torch.eye(p, dtype=S.dtype, device=S.device)
+
+    def influence(ks):
+        v = V[:, ks].T                                   # (k, p)
+        M = S[:, None] * (eye - v[:, :, None] * v[:, None, :])
+        Un = torch.linalg.svd(M, full_matrices=False)[0]
+        inf_ui = 1.0 / torch.abs(torch.diagonal(Un, dim1=-2,
+                                                dim2=-1)) - 1.0
+        return torch.sum(S * inf_ui, dim=-1)
+
+    # batched (p, p) workspaces are O(p³) memory: at most 64 snapshots
+    # per batch
+    ks = torch.arange(p, device=S.device)
+    inf_basis = torch.cat([influence(ks[k:k + 64])
+                           for k in range(0, p, 64)])
+    inf_rel = to_numpy(inf_basis / torch.sum(inf_basis))
+
+    P = np.asarray(P)
+    n_dim = P.shape[1]
+    sampler = qmc.LatinHypercube(d=n_dim, seed=seed)
+    q = 100 * n_dim
+    sample0 = sampler.random(n=q)
+    span = P.max(axis=0) - P.min(axis=0)
+    sample = span[None, :] * sample0 + P.min(axis=0)[None, :]
+
+    dist = np.linalg.norm(sample[:, None, :] - P[None, :, :], axis=2)
+    j = np.argmin(dist, axis=1)
+    pot = dist[np.arange(q), j] * inf_rel[j]
+    return sample[np.argmax(pot), :]
+
+
 class ROM:
     """Reduced-order model over a feature-blocked snapshot matrix.
 
@@ -329,42 +369,10 @@ class ROM:
         statistics alone.  ``svd_tall`` runs at its default refine depth for
         the model's device.  The candidates come from
         ``scipy.stats.qmc.LatinHypercube(seed=seed)`` on the host."""
-        from scipy.stats import qmc
-
         X0, _, _ = _scaling.scale_data(self._t(self.X), self.n_features,
                                        scale_type, 1)
         _, S, Vt = _svd.svd_tall(X0)
-        V = Vt.T
-        p = V.shape[0]
-        eye = torch.eye(p, dtype=X0.dtype, device=X0.device)
-
-        def influence(ks):
-            v = V[:, ks].T                                   # (k, p)
-            M = S[:, None] * (eye - v[:, :, None] * v[:, None, :])
-            Un = torch.linalg.svd(M, full_matrices=False)[0]
-            inf_ui = 1.0 / torch.abs(torch.diagonal(Un, dim1=-2,
-                                                    dim2=-1)) - 1.0
-            return torch.sum(S * inf_ui, dim=-1)
-
-        # batched (p, p) workspaces are O(p³) memory: at most 64 snapshots
-        # per batch
-        ks = torch.arange(p, device=X0.device)
-        inf_basis = torch.cat([influence(ks[k:k + 64])
-                               for k in range(0, p, 64)])
-        inf_rel = to_numpy(inf_basis / torch.sum(inf_basis))
-
-        P = np.asarray(P)
-        n_dim = P.shape[1]
-        sampler = qmc.LatinHypercube(d=n_dim, seed=seed)
-        q = 100 * n_dim
-        sample0 = sampler.random(n=q)
-        span = P.max(axis=0) - P.min(axis=0)
-        sample = span[None, :] * sample0 + P.min(axis=0)[None, :]
-
-        dist = np.linalg.norm(sample[:, None, :] - P[None, :, :], axis=2)
-        j = np.argmin(dist, axis=1)
-        pot = dist[np.arange(q), j] * inf_rel[j]
-        return sample[np.argmax(pot), :]
+        return influence_candidate(S, Vt.T, P, seed)
 
     # ------------------------------------------------------------------ #
     # Incremental basis update

@@ -69,12 +69,13 @@ from .multifi.mfk import predict_levels_batch
 from .rom.rom import is_torch_sparse, torch_sparse_to_scipy
 from .sensing.decoder import _forward as _decoder_forward
 
-_ITEM_14 = "(ROADMAP.md §A item 14: sharding and checkpoints)"
+_ITEM_14_3 = "(ROADMAP.md §A item 14.3: sharding over torch.distributed)"
 
 
 def shard_state_rows(*args, **kwargs):
     raise NotImplementedError(
-        f"shard_state_rows (multi-card serving) is not ported yet {_ITEM_14}.")
+        "shard_state_rows (multi-card serving) is not ported yet "
+        f"{_ITEM_14_3}.")
 
 
 def _predict_math(state, Y_values, Y_sigma, method, admm_iters, over_relax,
@@ -282,15 +283,23 @@ class SoftSensor:
                    device=spr.device, **kw)
 
     @classmethod
-    def load(cls, *args, **kwargs):
-        raise NotImplementedError(
-            f"SoftSensor.load (.npz checkpoints) is not ported yet "
-            f"{_ITEM_14}.")
+    def load(cls, path: str, feature_ids=None, dtype=torch.float32,
+             admm_iters: int = 300, admm_rho: str = "adaptive",
+             device: DeviceLike = None) -> "SoftSensor":
+        """Build from a checkpoint written by
+        :func:`openmeasure_torch.utils.checkpoint.save_model` (or the JAX
+        package's), loaded on ``device`` (``None`` means the card).  Pass
+        ``feature_ids`` for a model trained with a C that is not
+        one-hot."""
+        from .utils.checkpoint import load_model
+        return cls.from_spr(load_model(path, device=device),
+                            feature_ids=feature_ids, dtype=dtype,
+                            admm_iters=admm_iters, admm_rho=admm_rho)
 
     def shard(self, *args, **kwargs):
         raise NotImplementedError(
             f"SoftSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14}.")
+            f"{_ITEM_14_3}.")
 
     def predict_full(self, y_values, y_sigma=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -465,15 +474,23 @@ class GPRSensor:
                    admm_over_relax=admm_over_relax, admm_rho=admm_rho)
 
     @classmethod
-    def load(cls, *args, **kwargs):
-        raise NotImplementedError(
-            f"GPRSensor.load (.npz checkpoints) is not ported yet "
-            f"{_ITEM_14}.")
+    def load(cls, path: str, limits=None, bc=None, constraints=None,
+             admm_iters: int = 300, admm_over_relax: float = 1.6,
+             admm_rho: str = "adaptive",
+             device: DeviceLike = None) -> "GPRSensor":
+        """Build from a checkpoint of a trained GPR, loaded on ``device``
+        (``None`` means the card); the arguments as :meth:`from_gpr`."""
+        from .utils.checkpoint import load_model
+        return cls.from_gpr(load_model(path, device=device), limits=limits,
+                            bc=bc, constraints=constraints,
+                            admm_iters=admm_iters,
+                            admm_over_relax=admm_over_relax,
+                            admm_rho=admm_rho)
 
     def shard(self, *args, **kwargs):
         raise NotImplementedError(
             f"GPRSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14}.")
+            f"{_ITEM_14_3}.")
 
     def __call__(self, P_star):
         Ur = self._state["Ur"]
@@ -569,15 +586,17 @@ class CoKrigingSensor:
                    b.n_levels, state)
 
     @classmethod
-    def load(cls, *args, **kwargs):
-        raise NotImplementedError(
-            f"CoKrigingSensor.load (.npz checkpoints) is not ported yet "
-            f"{_ITEM_14}.")
+    def load(cls, path: str,
+             device: DeviceLike = None) -> "CoKrigingSensor":
+        """Build from a checkpoint of a fitted CoKriging, loaded on
+        ``device`` (``None`` means the card)."""
+        from .utils.checkpoint import load_model
+        return cls.from_cokriging(load_model(path, device=device))
 
     def shard(self, *args, **kwargs):
         raise NotImplementedError(
             f"CoKrigingSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14}.")
+            f"{_ITEM_14_3}.")
 
     def __call__(self, X_test):
         Ur = self._state["Ur"]
@@ -657,15 +676,18 @@ class DecoderSensor:
                    dtype, device=dec.device)
 
     @classmethod
-    def load(cls, *args, **kwargs):
-        raise NotImplementedError(
-            f"DecoderSensor.load (.npz checkpoints) is not ported yet "
-            f"{_ITEM_14}.")
+    def load(cls, path: str, feature_ids=None, dtype=torch.float32,
+             device: DeviceLike = None) -> "DecoderSensor":
+        """Build from a checkpoint of a fitted ShallowDecoder, loaded on
+        ``device`` (``None`` means the card)."""
+        from .utils.checkpoint import load_model
+        return cls.from_decoder(load_model(path, device=device),
+                                feature_ids=feature_ids, dtype=dtype)
 
     def shard(self, *args, **kwargs):
         raise NotImplementedError(
             f"DecoderSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14}.")
+            f"{_ITEM_14_3}.")
 
     def __call__(self, y_values) -> torch.Tensor:
         """One request: sensor values (s,) → field (n,)."""
@@ -834,15 +856,22 @@ class DynamicSensor:
                    r_floor=r_floor, gate=gate, device=spr.device)
 
     @classmethod
-    def load(cls, *args, **kwargs):
-        raise NotImplementedError(
-            f"DynamicSensor.load (.npz checkpoints) is not ported yet "
-            f"{_ITEM_14}.")
+    def load(cls, path: str, ridge: float = 0.0, q_floor: float = 1e-8,
+             feature_ids=None, dtype=torch.float32, r_floor: float = 1e-6,
+             gate: Optional[float] = None,
+             device: DeviceLike = None) -> "DynamicSensor":
+        """Build from a checkpoint of a trained SPR (it carries ``Ar``, so
+        the dynamics are identified again on load), loaded on ``device``
+        (``None`` means the card)."""
+        from .utils.checkpoint import load_model
+        return cls.from_spr(load_model(path, device=device), ridge=ridge,
+                            q_floor=q_floor, feature_ids=feature_ids,
+                            dtype=dtype, r_floor=r_floor, gate=gate)
 
     def shard(self, *args, **kwargs):
         raise NotImplementedError(
             f"DynamicSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14}.")
+            f"{_ITEM_14_3}.")
 
     # ------------------------------------------------------------------ #
 

@@ -11,9 +11,10 @@ parameters flattened as ``params/<path>``, the specs as ``{"cls": name,
 "fields": {...}}``; ``:235-319`` for CoKriging; ``:193-200`` and
 ``:445-456`` for the decoder's ``decoder/layer{i}/W`` and ``/b``).  A
 ``DMD`` needs no converter (its fit is deterministic: both packages fit
-the same data), and a ``DynamicSensor`` packages an SPR that
-:func:`spr_from_numpy` carries across.  Reading the ``.npz`` checkpoint
-files themselves is ROADMAP.md §A item 14.
+the same data, and :func:`dmd_from_numpy` rebuilds a saved one), and a
+``DynamicSensor`` packages an SPR that :func:`spr_from_numpy` carries
+across.  :mod:`openmeasure_torch.utils.checkpoint` reads the ``.npz``
+checkpoint files into these converters.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ..core.device import DeviceLike, as_tensor, to_numpy
 from ..core.host64 import HOST, tree_f64
+from ..dynamics.dmd import DMD
 from ..gp import kernels as K
 from ..gp.exact_gp import tree_map
 from ..gp.gpr import GPR
@@ -41,6 +43,45 @@ META_KEYS = ("r", "n_features", "n_points", "scale_type", "method", "solver",
              "admm_max_iter", "admm_tol", "admm_over_relax")
 
 
+def _reduced_from_numpy(cls, state: Mapping[str, np.ndarray], meta: Dict,
+                        device: DeviceLike):
+    """A ``cls`` (ROM or a subclass built like it) holding the reduced
+    state ``X_cnt``, ``X_scl``, ``Ur``, ``Ar`` (``Vr`` and ``Sigma_r``
+    derived from ``Ar`` when absent) on ``device``, with a zero-memory
+    placeholder for the snapshot matrix."""
+    missing = [k for k in ("X_cnt", "X_scl", "Ur", "Ar") if k not in state]
+    if missing:
+        raise KeyError(f"{cls.__name__.lower()}_from_numpy: state lacks "
+                       f"{missing}")
+    n_features = int(meta["n_features"])
+    n = np.asarray(state["X_cnt"]).shape[0]
+    m = np.asarray(state["Ar"]).shape[0]
+    placeholder = np.broadcast_to(np.zeros(()), (n, m))
+    obj = cls(placeholder, n_features, state.get("xyz"), device=device)
+    if "n_points" in meta and int(meta["n_points"]) != obj.n_points:
+        raise ValueError(f"meta n_points={meta['n_points']} does not match "
+                         f"{n} rows / {n_features} features")
+    for key in ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r"):
+        if key in state:
+            setattr(obj, key, as_tensor(state[key], obj.device))
+    if "Sigma_r" not in state:
+        obj.Sigma_r = obj.Ar.norm(dim=0)
+    if "Vr" not in state:
+        obj.Vr = obj.Ar / obj.Sigma_r[None, :]
+    obj.r = int(meta.get("r", obj.Ar.shape[1]))
+    obj.scale_type = meta.get("scale_type", "std")
+    return obj
+
+
+def rom_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
+                   device: DeviceLike = None) -> ROM:
+    """A fitted port ROM holding ``state`` (``X_cnt``, ``X_scl``, ``Ur``,
+    ``Ar``, optionally ``Vr``, ``Sigma_r``, ``xyz``) on ``device``
+    (``None`` means the card); ``meta`` carries ``n_features`` and
+    optionally ``r``, ``n_points`` and ``scale_type``."""
+    return _reduced_from_numpy(ROM, state, meta, device)
+
+
 def spr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
                    device: DeviceLike = None) -> SPR:
     """A port SPR holding ``state`` on ``device`` (``None`` means the card).
@@ -48,32 +89,15 @@ def spr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
     ``state`` needs ``X_cnt``, ``X_scl``, ``Ur`` and ``Ar``; ``Vr`` and
     ``Sigma_r`` are derived from ``Ar`` when absent, as ``fit`` does.  With
     ``C`` the model is trained on it (``Theta = C @ Ur``), and a given
-    ``Theta`` then replaces the recomputed one.  ``meta`` carries
-    ``n_features`` and optionally the other :data:`META_KEYS`; a COLS
-    model (``method='COLS'``) trains with its ``limits/lo``/``limits/hi``
-    and ``constraints/A``/``lo``/``hi`` arrays (the checkpoint's keys) and
-    its ADMM knobs.  The snapshot matrix is not carried: the model's ``X`` is a
-    zero-memory placeholder with the right row count."""
-    missing = [k for k in ("X_cnt", "X_scl", "Ur", "Ar") if k not in state]
-    if missing:
-        raise KeyError(f"spr_from_numpy: state lacks {missing}")
-    n_features = int(meta["n_features"])
-    n = np.asarray(state["X_cnt"]).shape[0]
-    m = np.asarray(state["Ar"]).shape[0]
-    placeholder = np.broadcast_to(np.zeros(()), (n, m))
-    spr = SPR(placeholder, n_features, state.get("xyz"), device=device)
-    if "n_points" in meta and int(meta["n_points"]) != spr.n_points:
-        raise ValueError(f"meta n_points={meta['n_points']} does not match "
-                         f"{n} rows / {n_features} features")
-    for key in ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r"):
-        if key in state:
-            setattr(spr, key, as_tensor(state[key], spr.device))
-    if "Sigma_r" not in state:
-        spr.Sigma_r = spr.Ar.norm(dim=0)
-    if "Vr" not in state:
-        spr.Vr = spr.Ar / spr.Sigma_r[None, :]
-    spr.r = int(meta.get("r", spr.Ar.shape[1]))
-    spr.scale_type = meta.get("scale_type", "std")
+    ``Theta`` then replaces the recomputed one; without ``C`` a given
+    ``Theta`` is kept as it is (a model trained on Theta itself).
+    ``meta`` carries ``n_features`` and optionally the other
+    :data:`META_KEYS`; a COLS model (``method='COLS'``) trains with its
+    ``limits/lo``/``limits/hi`` and ``constraints/A``/``lo``/``hi`` arrays
+    (the checkpoint's keys) and its ADMM knobs.  The snapshot matrix is
+    not carried: the model's ``X`` is a zero-memory placeholder with the
+    right row count."""
+    spr = _reduced_from_numpy(SPR, state, meta, device)
     if state.get("C") is not None:
         limits = constraints = None
         if "limits/lo" in state:
@@ -89,7 +113,30 @@ def spr_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
                   admm_over_relax=meta.get("admm_over_relax", 1.6))
         if state.get("Theta") is not None:
             spr.Theta = as_tensor(state["Theta"], spr.device)
+    elif state.get("Theta") is not None:
+        spr.Theta = as_tensor(state["Theta"], spr.device)
+        spr.C = None
     return spr
+
+
+def dmd_from_numpy(state: Mapping[str, np.ndarray], meta: Dict,
+                   device: DeviceLike = None) -> DMD:
+    """A fitted port DMD holding ``state`` on ``device`` (``None`` means
+    the card), ready to ``forecast``: the reduced state of
+    :func:`rom_from_numpy` and the spectral state under the checkpoint's
+    keys, ``dmd/eigs``, ``dmd/W``, ``dmd/amplitudes``, ``dmd/_b_exact``
+    (host complex128), ``dmd/A_tilde`` (host float64) and ``dmd/B`` (the
+    exact-mode panel, on the device); ``meta`` adds ``dt`` and ``m``."""
+    dmd = _reduced_from_numpy(DMD, state, meta, device)
+    for a in ("eigs", "W", "amplitudes", "_b_exact"):
+        setattr(dmd, a, np.asarray(state[f"dmd/{a}"]))
+    dmd.A_tilde = np.asarray(state["dmd/A_tilde"], dtype=np.float64)
+    dmd._B = as_tensor(state["dmd/B"], dmd.device)
+    dmd.dt = float(meta["dt"])
+    dmd._m = int(meta["m"])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        dmd.omega = np.log(dmd.eigs.astype(np.complex128)) / dmd.dt
+    return dmd
 
 
 GPR_ARRAY_KEYS = ("X_cnt", "X_scl", "Ur", "Ar", "Vr", "Sigma_r", "xyz", "P",

@@ -5,6 +5,7 @@ Run from the root of a checkout::
 
     python3 profile_torch.py [qrcp] [chol] [spr] [gp] [serving] [mfk]
                              [placement] [dynamics] [ctc] [update]
+                             [refine]
 
 With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
 per call against k on random panels of the main path's shapes and layout
@@ -72,7 +73,19 @@ and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
   rows, 38 snapshots, r = 14), one traced ``svd_append_columns_eager`` with
   the 3 new scaled snapshots and one traced ``SPR.update_basis`` (rank
   kept, so repeated calls do the same work): device time by kind, launches,
-  device-to-host copies.
+  device-to-host copies;
+* ``refine``: the SVD refine depth of the fp32 Gram route at 1 against 2
+  (``linalg.svd.default_refine`` set to each in turn) on the consumers that
+  use each mode: the class-API fit at the flagship and 3D sizes against the
+  card's float64 fit (per-mode relative σ error and the largest principal
+  angle of each leading dimension k = 1…14, and the same for the fp32
+  decomposition of a panel scaled with float64 statistics), the
+  float64-basis objective
+  gap of ``chip_smoke.py`` phase 16's GEM, DG and VDG selections, the
+  leading dimensions that phase 20's fit resolves (angle ≤ 1e-2 rad), the
+  GP NRMSE (``gpr_end_to_end`` and the SingleTask class flow) against the
+  float64 run, and the walls of ``spr_end_to_end`` and of the class-API
+  fit (CUDA events, calls in turns).
 
 It needs a card and stops without one.  Every number it prints was
 measured on the card named on its first line.
@@ -119,6 +132,187 @@ def by_kind(by_name):
     return sums
 
 
+def refine_report(dev, cs, flag, cube, say, n_features=N_FEATURES, r=R,
+                  width=28, reps=10):
+    """The ``refine`` section: refine depth 1 against 2 (see the module
+    docstring).  ``cs`` is ``chip_smoke.py`` loaded as a module (its
+    objectives, principal angles and phase 20's data); ``flag`` and
+    ``cube`` the flagship and 3D sets; ``width`` the 3D pipeline's
+    ``svd_width``."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from openmeasure_torch import GPR, SPR
+    from openmeasure_torch.core import scaling
+    from openmeasure_torch.linalg import svd
+    from openmeasure_torch.pipelines import gpr_end_to_end, spr_end_to_end
+    from openmeasure_torch.sensing import dg as dg_mod
+    from openmeasure_torch.sensing import gem as gem_mod
+    from openmeasure_torch.sensing import vector as vec_mod
+    from openmeasure_torch.utils.metrics import nrmse
+
+    default = svd.default_refine
+    depths = (1, 2)
+
+    def at(k, fn):
+        svd.default_refine = lambda device: k
+        try:
+            return fn()
+        finally:
+            svd.default_refine = default
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def walls(fns):
+        """Wall per call of each (key -> callable), in turns; key ->
+        (median, min, max) ms."""
+        ts = {key: [] for key in fns}
+        for fn in fns.values():
+            fn()
+        keys = list(fns)
+        for rep in range(reps):
+            for key in (keys if rep % 2 == 0 else keys[::-1]):
+                sync()
+                t = time.perf_counter()
+                fns[key]()
+                sync()
+                ts[key].append((time.perf_counter() - t) * 1e3)
+        return {key: (statistics.median(v), min(v), max(v))
+                for key, v in ts.items()}
+
+    def fit(X, xyz, k=None):
+        spr = SPR(X, n_features, xyz, device=dev)
+        if k is None:
+            spr.fit(select_modes="number", n_modes=r)
+        else:
+            at(k, lambda: spr.fit(select_modes="number", n_modes=r))
+        return spr
+
+    def resolved(ang):
+        return next((k for k, a in enumerate(ang) if a > 1e-2), len(ang))
+
+    say(f"refine depth 1 against 2 (svd.default_refine set to each), fp32 "
+        f"against the card's float64 fit, r = {r}")
+    for tag, d in (("flagship", flag), ("3D", cube)):
+        m64 = fit(d["X_train"].astype(np.float64), d["xyz"], 2)
+        U64 = m64.Ur.cpu().numpy()
+        S64 = m64.Sigma_r.cpu().numpy()
+        del m64
+        for k in depths:
+            m32 = fit(d["X_train"], d["xyz"], k)
+            U32 = m32.Ur.double().cpu().numpy()
+            S32 = m32.Sigma_r.double().cpu().numpy()
+            del m32
+            sig = np.abs(S32 - S64) / S64
+            ang = cs.principal_angles(U32, U64)
+            say(f"  {tag} {d['X_train'].shape} refine {k}: per-mode "
+                f"|Δσ|/σ k = 1…{r}: "
+                + ", ".join(f"{v:.2e}" for v in sig)
+                + "; largest principal angle (rad) by leading dimension: "
+                + ", ".join(f"{v:.2e}" for v in ang)
+                + f"; resolved (angle ≤ 1e-2) k = 1…{resolved(ang)}")
+        # the same fp32 decomposition of a panel scaled with float64
+        # statistics (rounded to fp32 once): what refine cannot repair
+        X64 = torch.as_tensor(d["X_train"], dtype=torch.float64,
+                              device=dev)
+        X0 = scaling.scale_data(X64, n_features, "std", 1)[0].float()
+        del X64
+        for k in depths:
+            m32 = SPR(d["X_train"], n_features, d["xyz"], device=dev)
+            Ur, Ar, _ = at(k, lambda: m32.decomposition(
+                X0, select_modes="number", n_modes=r))
+            ang = cs.principal_angles(Ur.double().cpu().numpy(), U64)
+            say(f"  {tag} refine {k}, the fp32 panel scaled with float64 "
+                f"statistics: largest principal angle by leading dimension "
+                + ", ".join(f"{v:.2e}" for v in ang)
+                + f"; resolved k = 1…{resolved(ang)}")
+        del U32, U64, X0
+
+    # phase 16's float64-basis gap of each placement family
+    kw = {"gem": dict(n_sensors=cs.PLACE_N["gem"], d_min=0.05),
+          "dg": dict(n_sensors=cs.PLACE_N["dg"]),
+          "vdg": dict(n_sensors=cs.PLACE_N["vdg"])}
+    m64 = fit(flag["X_train"].astype(np.float64), flag["xyz"], 2)
+    U64 = m64.Ur.cpu().numpy()
+    d64, _ = cs.vdg_delta(U64, n_features, float(np.finfo(np.float64).eps))
+    objective = {"gem": cs.gem_entropy, "dg": cs.dg_logdet,
+                 "vdg": lambda U, sel: cs.vdg_logdet(U, sel, n_features,
+                                                     d64)}
+
+    def points(kind, spr, C):
+        return (spr.sensor_points if kind == "vdg"
+                else C.argmax(dim=1).cpu().numpy())
+
+    s64 = {kind: points(kind, m64, m64.optimal_placement(kind, **kw[kind]))
+           for kind in kw}
+    for k in depths:
+        m32 = fit(flag["X_train"], flag["xyz"], k)
+        gaps = []
+        for kind in kw:
+            s32 = points(kind, m32, m32.optimal_placement(kind, **kw[kind]))
+            b32, b64 = (objective[kind](U64, sel) for sel in (s32, s64[kind]))
+            gaps.append(f"{kind} {(b64 - b32) / abs(b64):.4e} (shared "
+                        f"{len(set(s32.tolist()) & set(s64[kind].tolist()))}"
+                        f"/{len(s32)})")
+        say(f"  phase 16, flagship, refine {k}: the fp32 selections' "
+            f"objective gap on the float64 model's basis (float64 selection "
+            f"− fp32's, relative): " + "; ".join(gaps))
+    del m64, U64
+
+    # phase 20's fit (38 snapshots): the leading dimensions it resolves
+    X, _, _, xyz, _, _, _ = cs.update_data()
+    U64 = fit(X.astype(np.float64), xyz, 2).Ur.cpu().numpy()
+    for k in depths:
+        ang = cs.principal_angles(
+            fit(X, xyz, k).Ur.double().cpu().numpy(), U64)
+        say(f"  phase 20's fit {X.shape}, refine {k}: largest principal "
+            f"angle by k: " + ", ".join(f"{v:.2e}" for v in ang)
+            + f"; resolved k = 1…{resolved(ang)}")
+
+    # the GP NRMSE, float64 on the card as the reference
+    keys = ("X_train", "P_train", "P_test", "X_test")
+    g32 = [torch.as_tensor(flag[k_], device=dev) for k_ in keys]
+    g64 = [t.double() for t in g32]
+    T64 = g64[3]
+    ref = float(gpr_end_to_end(*g64, n_features, r, device=dev).nrmse)
+
+    def gp_class(k):
+        g = GPR(flag["X_train"], n_features, flag["xyz"], flag["P_train"],
+                device=dev)
+        at(k, lambda: g.fit(select_modes="number", n_modes=r))
+        g.train()
+        return float(nrmse(g.reconstruct(g.predict(flag["P_test"])[0])
+                           .double(), T64))
+
+    for k in depths:
+        e2e = float(at(k, lambda: gpr_end_to_end(*g32, n_features, r,
+                                                 device=dev)).nrmse)
+        say(f"  GP flagship refine {k}: gpr_end_to_end NRMSE {e2e:.6e} "
+            f"({e2e / ref:.4f} × float64's {ref:.6e}), SingleTask class "
+            f"flow {gp_class(k):.6e}")
+
+    # the SPR walls
+    for tag, d, w in (("flagship", flag, None), ("3D", cube, width)):
+        X = torch.as_tensor(d["X_train"], device=dev)
+        T = torch.as_tensor(d["X_test"], device=dev)
+        e2e = walls({k: (lambda k=k: spr_end_to_end(
+            X, T, n_features, r, refine=k, svd_width=w, device=dev))
+            for k in depths})
+        fits = walls({k: (lambda k=k: fit(X, d["xyz"], k)) for k in depths})
+        for k in depths:
+            nr = float(spr_end_to_end(X, T, n_features, r, refine=k,
+                                      svd_width=w, device=dev).nrmse)
+            say(f"  {tag} refine {k}: spr_end_to_end NRMSE {nr:.4e}, wall "
+                f"median {e2e[k][0]:.4f} ms (min {e2e[k][1]:.4f}, max "
+                f"{e2e[k][2]:.4f}); class-API fit median {fits[k][0]:.4f} "
+                f"ms (min {fits[k][1]:.4f}, max {fits[k][2]:.4f}); "
+                f"{reps} calls each, in turns")
+        del X, T
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -141,7 +335,7 @@ def main() -> int:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     known = {"qrcp", "chol", "spr", "gp", "serving", "mfk", "placement",
-             "dynamics", "ctc", "update"}
+             "dynamics", "ctc", "update", "refine"}
     sections = set(sys.argv[1:]) or known
     unknown = sections - known
     if unknown:
@@ -518,7 +712,7 @@ def main() -> int:
             traced(f"DynamicSensor.{method}, 50 frames, σ = 0.05",
                    lambda method=method: getattr(ksensor, method)(Y, S), 50,
                    "frame")
-    if "ctc" in sections or "update" in sections:
+    if sections & {"ctc", "update", "refine"}:
         import importlib.util
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", ROOT / "chip_smoke.py")
@@ -582,6 +776,10 @@ def main() -> int:
                    spr_u.Ur, spr_u.Sigma_r, spr_u.Vr.T, X0n), 1, "call")
         traced("SPR.update_basis (rank kept)",
                lambda: spr_u.update_basis(X_new), 1, "call")
+    if "refine" in sections:
+        refine_report(dev, cs, make_flame_dataset(dtype=np.float32),
+                      make_flame_dataset(dtype=np.float32, **CUBE),
+                      lambda msg: print(msg, flush=True))
     print(smi, flush=True)
     return 0
 

@@ -401,8 +401,8 @@ def test_dynamic_sensor_validation_matches_jax(served):
         {"n_features": 2}, device="cpu")
     with pytest.raises(ValueError, match="needs a trained SPR"):
         DynamicSensor.from_spr(untrained)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DynamicSensor.load("x.npz")
+    with pytest.raises(FileNotFoundError):
+        DynamicSensor.load("x.npz", device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         tsen.shard(None)
     assert DynamicSensor.from_spr(ts).filter_batch(Y)[0].dtype == torch.float32

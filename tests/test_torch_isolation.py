@@ -40,6 +40,8 @@ def test_import_without_jax_in_a_fresh_process():
         "import openmeasure_torch.datasets.flame, openmeasure_torch.utils.logging\n"
         "import openmeasure_torch.ctc, openmeasure_torch.native\n"
         "import openmeasure_torch.linalg.incremental\n"
+        "import openmeasure_torch.streaming, openmeasure_torch.utils.checkpoint\n"
+        "from openmeasure_torch import StreamingSPR, StreamingDMD\n"
         "from openmeasure_torch.ctc import (camera, grid, projection, raytrace,\n"
         "                                  resample, unstructured)\n"
         "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
@@ -115,14 +117,28 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resample_to_grid(np.random.default_rng(2).random((20, 3)),
                          np.ones((20, 1)), [3, 3, 3])
+    from openmeasure_torch import (StreamingDMD, StreamingGPR,
+                                   StreamingPIGPR, StreamingSPR)
+    from openmeasure_torch.utils.checkpoint import load_model
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingSPR(X, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingDMD(X, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingGPR(X, 2, None, P)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingPIGPR(X, 2, None, P, P[:2], None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model("model.npz")
 
 
 def test_port_reads_no_file_of_the_jax_package():
     """The port's sources name no path inside the JAX package: its native
-    build compiles its own copy of the ray caster."""
+    build compiles its own copies of the ray caster and the loader."""
     from openmeasure_torch import _build
     assert _build.NATIVE == ROOT / "openmeasure_torch" / "native"
     assert (_build.NATIVE / "raycast.cpp").is_file()
+    assert (_build.NATIVE / "npyloader.cpp").is_file()
     for path in PORT_FILES:
         text = path.read_text()
         # a path into the JAX package, as a string or joined with `/`

@@ -175,16 +175,19 @@ def test_spr_from_numpy_matches_jax(flame, fitted_pair):
 
 
 def test_unported_methods_raise_with_roadmap_item():
-    import openmeasure_torch
-    with pytest.raises(AttributeError, match="A.14"):
-        openmeasure_torch.StreamingROM
-    with pytest.raises(AttributeError, match="A.14"):
-        openmeasure_torch.StreamingSPR
-    from openmeasure_torch import DecoderSensor, DynamicSensor
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DecoderSensor.load("decoder.npz")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DynamicSensor.load("spr.npz")
+    """What still raises is the sharding of item 14.3: the serving row
+    sharding, a sensor's shard and the streaming fit's mesh branch."""
+    from openmeasure_torch import DecoderSensor, DynamicSensor, SoftSensor
+    from openmeasure_torch.serving import shard_state_rows
+    from openmeasure_torch.streaming import StreamingROM
+    with pytest.raises(NotImplementedError, match="item 14.3"):
+        shard_state_rows({}, None)
+    for cls in (SoftSensor, DecoderSensor, DynamicSensor):
+        with pytest.raises(NotImplementedError, match="item 14.3"):
+            cls.shard(None, None)
+    X = np.random.default_rng(0).standard_normal((40, 6)) + 5.0
+    with pytest.raises(NotImplementedError, match="item 14.3"):
+        StreamingROM(X, 2, device="cpu").fit(mesh=object())
 
 
 def test_class_flow_operator_forms_match_jax(flame):

@@ -153,7 +153,9 @@ def test_kernel_takes_more_pivots_than_columns(card, shape, k, scaled):
 
 @pytest.mark.cuda
 def test_one_call_is_one_kernel(card):
-    """One qrcp_pivots_cuda call runs exactly one kernel on the card."""
+    """One qrcp_pivots_cuda call runs exactly one kernel on the card.
+    The trace can miss the first device events it records, so a few
+    fills of a marker run first, and fills are left out of the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(13)
@@ -162,15 +164,22 @@ def test_one_call_is_one_kernel(card):
     s = torch.as_tensor(np.geomspace(1.0, 1e4, 14), dtype=torch.float32,
                         device=card)
     TQC.qrcp_pivots_cuda(A, 14, row_scale=s)
+    marker = torch.empty(1, device=card)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            marker.fill_(1.0)
+        torch.cuda.synchronize()
         TQC.qrcp_pivots_cuda(A, 14, row_scale=s)
+        torch.cuda.synchronize()
+        marker.fill_(2.0)
         torch.cuda.synchronize()
     kernels = [e.name for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and "memcpy" not in e.name.lower()
-               and "memset" not in e.name.lower()]
+               and "memset" not in e.name.lower()
+               and "Fill" not in e.name]
     assert len(kernels) == 1 and "qrcp" in kernels[0], kernels
 
 

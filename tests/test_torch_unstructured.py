@@ -255,7 +255,7 @@ def test_host_library_is_cached_under_a_source_hash():
     path = _build._lib_path("raycast")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libraycast-") and path.suffix == ".so"
-    assert _build.host_sources() == ["raycast"]
+    assert _build.host_sources() == ["npyloader", "raycast"]
     assert _build.load_library("raycast") is _build.load_library("raycast")
     assert path.exists()
     # torch stays out of the caster: it takes and returns numpy
