@@ -77,7 +77,19 @@ paths through their user entry points:
   equal to the in-core ``scale_data``; ``StreamingGPR`` at flagship width
   (``csrc/chol.cu``) against its float64 run; ``save_model`` of both
   models and ``SoftSensor.load``/``GPRSensor.load`` on the card, equal to
-  the sensors built in memory; ``StreamingDMD`` against the in-core DMD.
+  the sensors built in memory; ``StreamingDMD`` against the in-core DMD;
+* sharding (phase 26, ``parallel/``): on an NCCL world of one,
+  ``sharded_spr_step`` and ``sharded_spr_cols_step`` at the flagship size,
+  ``StreamingSPR.fit(mesh=…)`` on phase 21's matrix file,
+  ``sharded_gpr_train`` (14 modes), the sharded COLS ``SoftSensor`` at
+  batch 50 and ``sharded_mfk_end_to_end`` (configuration A), each
+  ``torch.equal`` to its call with no mesh and through the kernels; then
+  two gloo ranks on the one card (``parallel.harness.dryrun_sharded``,
+  the checks of ``dryrun_multichip`` at flagship width): the SPR and COLS
+  steps, the QR sweep, GEM, DG and VDG on the unsharded basis split in
+  two (equal to the kernel's and the unsharded selections), the GP on two
+  mode ranks (iterations equal), the OLS, COLS (2e-3 of max|a|) and Kalman
+  sensors, co-kriging and the streamed fit from a matrix file (equal).
 
 The QRCP kernel is held bit-equal to the plain sweep (a panel with a NaN
 entry, and k > n, included), and ``qrcp_pivots_auto`` must launch it and
@@ -288,6 +300,14 @@ UPD_NRMSE_SLACK = 1.10
 STREAM_DK = 32.0
 STREAM_ANGLE_CAP = 0.05
 STREAM_MEDIAN_ROWS = 10_007
+# phase 26: the sharded COLS step's ADMM budget, and the two-rank world's
+# timeout (spawn, CUDA start and every check)
+SHARD_COLS_ITERS = 4000
+SHARD_WORLD_TIMEOUT = 600.0
+# phase 26(b) runs the JAX package's dryrun_multichip at its own rank: at
+# r = 14 the fp32 flagship placement is degenerate (ROADMAP §C), so
+# a sharded fit's end-to-end pivots, and with them its NRMSE, may move
+DRYRUN_R = 8
 
 
 def gem_entropy(U, sel):
@@ -951,18 +971,22 @@ def update_phase(h):
     return n_qrcp, gp["fp32"][1]
 
 
-def streaming_phase(h):
+def streaming_phase(h, after=None):
     """Phases 21–25: the out-of-core tier on the card, from ``.npy`` files
     written to a temporary directory under ``build/`` and deleted at the
-    end, also when a phase fails.  Returns (qrcp launches at the 3D
-    width, chol launches)."""
+    end, also when a phase fails; ``after(h, tmp)`` (phase 26) runs before
+    the deletion, while phase 21's matrix file is there.  Returns (qrcp
+    launches at the 3D width, chol launches)."""
     import shutil
     import tempfile
     (ROOT / "build").mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-stream-",
                                 dir=ROOT / "build"))
     try:
-        return _streaming_phases(h, tmp)
+        out = _streaming_phases(h, tmp)
+        if after is not None:
+            after(h, tmp)
+        return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         h.log(f"  deleted the temporary .npy files under build/{tmp.name}")
@@ -1167,6 +1191,9 @@ def _streaming_phases(h, tmp):
                          and np.array_equal(pk, rows)):
         fail("the streamed model's placement is not one csrc/qrcp.cu launch "
              "equal to the plain sweep")
+    # phase 26 fits the same file on a mesh of one rank
+    h.stream3d = dict(path=str(mat), Ur=sm.Ur, Sigma_r=sm.Sigma_r, Ar=sm.Ar,
+                      rows=rows)
     sm.train(C)
     T3 = cube["X_test"]
     ys = [np.column_stack([T3[rows, j], np.zeros(r), rows // (n // nf)])
@@ -1197,6 +1224,7 @@ def _streaming_phases(h, tmp):
                                        ).to(dev))[1]
     overlap_check(h, str(mat), m, timed)
     med = statistics.median(walls[2])
+    h.stream3d["ms"] = med
     disk = statistics.median(passes["matrix file"])
     log(f"  host-engine fit from the matrix file, 3 fits: prefetch 2 "
         f"{spread(walls[2])}; prefetch 0 {spread(walls[0])} (prefetch 0 / 2 "
@@ -1338,6 +1366,237 @@ def _streaming_phases(h, tmp):
     if not (err["float64"] <= DMD_EIG_ABS and fc < 0.2):
         fail("StreamingDMD departs from the in-core DMD")
     return n_qr, n_chol
+
+
+def sharded_phase(h, tmp):
+    """Phase 26: sharding over torch.distributed at flagship width.  (a) A
+    world of one with NCCL: each sharded entry point held ``torch.equal``
+    to the same call with no mesh, through the kernels.  (b) Two gloo
+    ranks on the one card (NCCL refuses two ranks on one GPU), spawned by
+    ``parallel.harness.dryrun_sharded``: the checks of the JAX package's
+    ``dryrun_multichip`` at flagship width, each sharded call against the
+    unsharded one on the same inputs.  Sets ``h.phase26`` to the launches
+    of (a): (qrcp at the flagship width, qrcp at the 3D width, chol)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from openmeasure_torch import SPR, SoftSensor, StreamingSPR
+    from openmeasure_torch.gp import exact_gp as E
+    from openmeasure_torch.parallel import harness as H
+    from openmeasure_torch.parallel import sharded as S
+    from openmeasure_torch.parallel._comm import Axis
+    from openmeasure_torch.pipelines import mfk_end_to_end
+
+    dev, log, fail, flag = h.dev, h.log, h.fail, h.flag
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    nf, r = 9, 14
+    X, Xt = flag["X_train"], flag["X_test"]
+    n, m = X.shape
+    npts = n // nf
+
+    def ev_ms(fn, reps=10):
+        """Median wall of one call of ``fn`` by CUDA events (host clock
+        off the card)."""
+        fn()
+        sync()
+        ts = []
+        for _ in range(reps):
+            if cuda:
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                ts.append(a.elapsed_time(b))
+            else:
+                t = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+
+    def collectives(fn):
+        c0 = Axis.collectives
+        out = fn()
+        sync()
+        return out, Axis.collectives - c0
+
+    def same(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    # ---- (a) NCCL, a world of one --------------------------------------
+    t0 = time.perf_counter()
+    mesh = S.make_mesh(1, 1, device=dev)
+    init_ms = (time.perf_counter() - t0) * 1e3
+    log(f"phase 26(a): a world of one ({dist.get_backend()}), mesh "
+        f"(state 1, mode 1): init {init_ms:.1f} ms")
+    try:
+        Xb, Xtb = (S.shard_snapshots(A, nf, mesh) for A in (X, Xt))
+        (res1, n_coll), n_qr = h.counted(lambda: collectives(
+            lambda: S.sharded_spr_step(Xb, Xtb, r, mesh=mesh)))
+        res0 = S.sharded_spr_step(Xb, Xtb, r)
+        ms1 = ev_ms(lambda: S.sharded_spr_step(Xb, Xtb, r, mesh=mesh))
+        ms0 = ev_ms(lambda: S.sharded_spr_step(Xb, Xtb, r))
+        nr = float(res1[0])
+        log(f"  sharded_spr_step {(n, m)} + {Xt.shape[1]} test, r = {r}: "
+            f"torch.equal to no mesh={same(res1, res0)}, csrc/qrcp.cu "
+            f"launches {n_qr}, collectives {n_coll}, NRMSE {nr:.4e} (≤ "
+            f"{NRMSE_FLAGSHIP_MAX}); wall {ms1:.4f} ms with the mesh, "
+            f"{ms0:.4f} ms without (CUDA events, median of 10)")
+        if not (same(res1, res0) and n_qr == 1 and nr <= NRMSE_FLAGSHIP_MAX):
+            fail("the sharded SPR step on a world of one departs from the "
+                 "unsharded call")
+        Xb64 = X.astype(np.float64).reshape(nf, npts, -1)
+        f_lo, f_hi = Xb64.min(axis=(1, 2)), Xb64.max(axis=(1, 2))
+        span = f_hi - f_lo
+        lims = np.stack([f_lo - SERVE_PAD * span, f_hi + SERVE_PAD * span])
+        (c1, n_coll), n_qr_c = h.counted(lambda: collectives(
+            lambda: S.sharded_spr_cols_step(Xb, Xtb, r, lims[0], lims[1],
+                                            max_iter=SHARD_COLS_ITERS,
+                                            mesh=mesh)))
+        c0 = S.sharded_spr_cols_step(Xb, Xtb, r, lims[0], lims[1],
+                                     max_iter=SHARD_COLS_ITERS)
+        nrc = float(c1[0])
+        eqc = same(c1[:3], c0[:3]) and same(c1[3], c0[3])
+        log(f"  sharded_spr_cols_step (limits ± {SERVE_PAD:.0%} of each "
+            f"feature's span, max_iter {SHARD_COLS_ITERS}): torch.equal to "
+            f"no mesh={eqc}, csrc/qrcp.cu launches {n_qr_c}, collectives "
+            f"{n_coll}, NRMSE {nrc:.4e} (≤ {NRMSE_FLAGSHIP_MAX})")
+        if not (eqc and n_qr_c == 1 and nrc <= NRMSE_FLAGSHIP_MAX):
+            fail("the sharded COLS step on a world of one departs from the "
+                 "unsharded call")
+
+        # the 3D fit from phase 21's matrix file, on the mesh
+        st = h.stream3d
+        s3 = StreamingSPR(st["path"], nf, h.cube["xyz"], device=dev)
+        t0 = time.perf_counter()
+        s3.fit(select_modes="number", n_modes=r, mesh=mesh)
+        sync()
+        ms3 = (time.perf_counter() - t0) * 1e3
+        C3, n_qr3 = h.counted(lambda: s3.optimal_placement())
+        rows3 = C3.argmax(dim=1).cpu().numpy()
+        eq3 = (bool(torch.equal(s3.Ur, st["Ur"]))
+               and bool(torch.equal(s3.Sigma_r, st["Sigma_r"]))
+               and bool(torch.equal(s3.Ar, st["Ar"])))
+        log(f"  StreamingSPR.fit(mesh=…) on phase 21's matrix file "
+            f"{tuple(s3.Ur.shape)}: Ur, Sigma_r, Ar torch.equal to phase "
+            f"21's fit={eq3}, fit_mesh_ set={s3.fit_mesh_ is mesh}; wall "
+            f"{ms3:.1f} ms (phase 21's median {st['ms']:.1f} ms); QR "
+            f"placement: csrc/qrcp.cu launches {n_qr3}, pivots equal="
+            f"{bool(np.array_equal(rows3, st['rows']))}")
+        if not (eq3 and s3.fit_mesh_ is mesh and n_qr3 == 1
+                and np.array_equal(rows3, st["rows"])):
+            fail("the sharded 3D streaming fit on a world of one departs "
+                 "from phase 21's")
+        del s3, C3
+
+        # the GP: Vr of the world-of-one basis, 14 modes
+        fit = S._fit_and_place(Xb, r, "std", mesh, None)
+        X0 = S._scale_blocks(Xb)[0].reshape(n, m)
+        Ar = X0.T @ fit.Ur
+        Vr = Ar / torch.linalg.vector_norm(Ar, dim=0)[None, :]
+        P = torch.as_tensor(flag["P_train"], dtype=torch.float32,
+                            device=dev)
+        P0 = (P - P.mean(0)) / (P.std(0, correction=0) + 1e-8)
+        (g1, n_coll), n_chol_g = h.chol_counted(lambda: collectives(
+            lambda: S.sharded_gpr_train(mesh, P0, Vr, max_iter=1000)))
+        mean, kernel_, lik = S._specs()
+        Y = Vr.T.contiguous()
+        g0 = E.adam_early_stop(
+            E.make_single_task_loss(mean, kernel_, lik, P0, Y),
+            S.init_mode_stacked_params(r, 3, torch.float32, dev), lr=0.1,
+            max_iter=1000, rel_error=1e-5,
+            value_and_grad=E.make_single_task_value_and_grad(
+                mean, kernel_, lik, P0, Y))
+        eqg = (bool(torch.equal(g1.loss, g0.loss))
+               and bool(torch.equal(g1.iterations, g0.iterations)))
+        it = g1.iterations.cpu().numpy()
+        log(f"  sharded_gpr_train ({P0.shape[0]}, {P0.shape[1]}) × {r} "
+            f"modes, max_iter 1000: losses and iterations torch.equal to "
+            f"adam_early_stop={eqg}, iterations {it.min()}–{it.max()}, "
+            f"csrc/chol.cu launches {n_chol_g}, collectives {n_coll}")
+        if not eqg or n_chol_g < 1:
+            fail("the sharded GP trainer on a world of one departs from "
+                 "adam_early_stop")
+
+        # the sharded COLS sensor at batch 50
+        spr = SPR(X, nf, flag["xyz"], device=dev)
+        spr.fit(select_modes="number", n_modes=r)
+        C, n_qr_s = h.counted(lambda: spr.optimal_placement())
+        spr.train(C, method="COLS", limits=[lims[0], lims[1]])
+        rows = C.argmax(dim=1).cpu().numpy()
+        frames = np.tile(Xt[rows].T, (13, 1))[:SERVE_BATCH]
+        Yf = torch.as_tensor(frames, device=dev)
+        serve_ms = {}
+        for mode in ("adaptive", "fixed"):
+            s0 = SoftSensor.from_spr(spr, admm_iters=SERVE_ITERS,
+                                     admm_rho=mode).warmup()
+            s1 = s0.shard(mesh)
+            out1, n_coll = collectives(lambda: s1.predict_batch(Yf))
+            out0 = s0.predict_batch(Yf)
+            n_sync = h.host_syncs(lambda: s1.predict_batch(Yf))
+            _, dtoh = h.trace_counts(lambda: s1.predict_batch(Yf))
+            serve_ms[mode] = (ev_ms(lambda: s1.predict_batch(Yf))
+                              / SERVE_BATCH,
+                              ev_ms(lambda: s0.predict_batch(Yf))
+                              / SERVE_BATCH)
+            log(f"  SoftSensor.shard(mesh), COLS, {mode} ρ, batch "
+                f"{SERVE_BATCH}, {SERVE_ITERS} iterations: torch.equal to "
+                f"the unsharded sensor={same(out1, out0)}, {dtoh} "
+                f"device-to-host copies, {n_sync} synchronizing calls, "
+                f"collectives {n_coll}; a frame {serve_ms[mode][0]:.4f} ms "
+                f"sharded, {serve_ms[mode][1]:.4f} ms unsharded (CUDA "
+                f"events, median of 10 batches / {SERVE_BATCH})")
+            if not same(out1, out0) or dtoh or n_sync:
+                fail(f"the sharded {mode}-ρ sensor departs from the "
+                     "unsharded one or reads back to the host")
+
+        # co-kriging, configuration A, fp32
+        prob = [a.astype(np.float32) for a in mfk_problem()]
+        m1, n_chol_m = h.chol_counted(
+            lambda: S.sharded_mfk_end_to_end(mesh, *prob))
+        m0 = mfk_end_to_end(*prob, device=dev)
+        log(f"  sharded_mfk_end_to_end (configuration A, K = 8): "
+            f"torch.equal to mfk_end_to_end={same(m1, m0)}, csrc/chol.cu "
+            f"launches {n_chol_m}")
+        if not same(m1, m0):
+            fail("the sharded co-kriging on a world of one departs from "
+                 "mfk_end_to_end")
+    finally:
+        dist.destroy_process_group()
+    h.phase26 = (n_qr + n_qr_c + n_qr_s, n_qr3, n_chol_g + n_chol_m)
+
+    # ---- (b) two gloo ranks on the one card ----------------------------
+    store = str(tmp / "shard_X_train.npy")
+    np.save(store, H.dryrun_data(npts, nf)[0])
+    log(f"phase 26(b): parallel.harness.dryrun_sharded on two gloo ranks on "
+        f"the one card, {npts:,} cells × {nf} features (n = {n:,}), the "
+        f"dryrun's r = {DRYRUN_R}, GP ≤ 1000 iterations on two mode ranks, "
+        f"the streamed fit from a matrix file; walls of this world are not "
+        f"a speed figure")
+    t0 = time.perf_counter()
+    res = H.dryrun_sharded(2, 1, device=dev.type, n_cells=npts, r=DRYRUN_R,
+                           gp_iters=1000, store=store, backend="gloo",
+                           timeout_s=SHARD_WORLD_TIMEOUT, workdir=str(tmp))
+    log(f"  world of 2 ran in {time.perf_counter() - t0:.1f} s (spawn, "
+        "CUDA start and the checks)")
+    for rank, got in enumerate(res):
+        cost = ", ".join(f"{k} {c} ({ms:.1f} ms)"
+                         for k, (c, ms) in got["cost"].items())
+        log(f"  rank {rank}: the dryrun's bars held (QR sweep equal to the "
+            f"kernel's and the plain sweep's, GEM/DG/VDG equal to the "
+            f"unsharded, OLS coefficients exact, streamed fit equal); SPR "
+            f"NRMSE {got['nrmse']:.4e} (Δ {got['d_nrmse']:.2e} to no mesh); "
+            f"GP iterations {got['gpr_iters'][0]}–{got['gpr_iters'][1]} "
+            f"equal to the unsharded trainer's, losses max rel "
+            f"{got['d_gpr_rel']:.2e}; COLS sensor coefficients "
+            f"{got['d_cols_serving_rel']:.3e} of max|a| (≤ "
+            f"{SERVE_COEF_REL}); collectives (wall) a call: {cost}")
+        # check_dryrun held the dryrun's bars; the GP's is 1e-6 here
+        if not got["d_gpr_rel"] <= 1e-6:
+            fail(f"rank {rank}: the GP on two mode ranks departs from the "
+                 "unsharded trainer")
 
 
 def log(msg: str) -> None:
@@ -2883,13 +3142,16 @@ def main() -> int:
             r_["launches"] += n_chol20
     h.cube, h.flag = cube, flag
     t_phase = time.perf_counter()
-    n_qr21, n_chol23 = streaming_phase(h)
-    log(f"  phases 21-25 took {time.perf_counter() - t_phase:.1f} s")
+    n_qr21, n_chol23 = streaming_phase(h, after=sharded_phase)
+    log(f"  phases 21-26 took {time.perf_counter() - t_phase:.1f} s")
+    n_qr26, n_qr26_3d, n_chol26 = h.phase26
     for r_ in records:
+        if r_["name"] == "qrcp_pivots_cuda[flagship]":
+            r_["launches"] += n_qr26
         if r_["name"] == "qrcp_pivots_cuda[3d]":
-            r_["launches"] += n_qr21
+            r_["launches"] += n_qr21 + n_qr26_3d
         if r_["name"] == "chol_inv_logdet_cuda":
-            r_["launches"] += n_chol23
+            r_["launches"] += n_chol23 + n_chol26
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

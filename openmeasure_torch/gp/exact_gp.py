@@ -214,7 +214,8 @@ class TrainResult(NamedTuple):
 def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
                     max_iter: int = 1000, rel_error: float = 1e-5,
                     verbose: bool = False, unroll: int = 4,
-                    value_and_grad: Optional[Callable] = None) -> TrainResult:
+                    value_and_grad: Optional[Callable] = None,
+                    stop_axis=None) -> TrainResult:
     """Minimize ``loss_fn(params) -> (B,) losses`` with Adam; per-model
     early stop when |Δloss_b| ≤ rel_error (the reference's stopping rule).
     Converged models are frozen in place while the rest keep stepping.  As
@@ -235,7 +236,13 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
 
     ``value_and_grad(params) -> (losses (B,), grads dict)`` replaces
     autograd of ``sum(loss_fn)`` (the closed-form oracles below).
-    ``verbose`` is accepted for signature parity."""
+    ``verbose`` is accepted for signature parity.
+
+    ``stop_axis`` (a :class:`..parallel._comm.Axis`) makes the stop test
+    collective: each rank trains its own models, and the loop runs until
+    the models of every rank have stopped, as one vmapped ``while_loop``
+    over all of them does — per-model trajectories and iteration counts
+    are those of the unsharded call."""
     del verbose
     b1, b2, eps = 0.9, 0.999, 1e-8
     leaves0 = tree_leaves(params0)
@@ -261,8 +268,12 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
              for t, gi in zip(leaves, g)]
         return losses.detach(), g
 
+    def all_stopped() -> bool:
+        done = bool(torch.all(conv))
+        return done if stop_axis is None else stop_axis.all(done)
+
     count, j = 0, 0
-    while j < max_iter and not bool(torch.all(conv)):
+    while j < max_iter and not all_stopped():
         for _ in range(unroll):
             if j >= max_iter:
                 break

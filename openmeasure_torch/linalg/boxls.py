@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..core.device import as_tensor
+from ..parallel import _comm
 from .chol import cholesky_nan
 
 # iterations between host reads of "every element stopped" when tol > 0
@@ -164,10 +165,15 @@ class _Operator:
     """The constraint operator ``A`` (n, r), shared by the batch, times an
     optional per-element right factor ``R`` (b, r, r): the whitened MAP's
     ``A L`` is applied as ``A (L u)`` so that the (n, r) products stay one
-    GEMM over the batch instead of b separate (n, r) operators."""
+    GEMM over the batch instead of b separate (n, r) operators.
 
-    def __init__(self, A: torch.Tensor, R: Optional[torch.Tensor] = None):
-        self.A, self.R = A, R
+    With ``axis`` (a :class:`..parallel._comm.Axis` of several ranks) ``A``
+    is this rank's block of constraint rows: ``fwd`` stays local, ``adj``
+    and the row norms all-reduce their (b, r)- and (b,)-sized partials."""
+
+    def __init__(self, A: torch.Tensor, R: Optional[torch.Tensor] = None,
+                 axis=None):
+        self.A, self.R, self.axis = A, R, axis
 
     def fwd(self, g: torch.Tensor) -> torch.Tensor:       # (b, r) -> (b, n)
         if self.R is not None:
@@ -176,16 +182,23 @@ class _Operator:
 
     def adj(self, v: torch.Tensor) -> torch.Tensor:       # (b, n) -> (b, r)
         u = v @ self.A
+        if self.axis is not None:
+            u = self.axis.sum(u)          # the rows' partial products
         if self.R is not None:
             u = (u[..., None, :] @ self.R)[..., 0, :]
         return u
 
+    def norms(self, *vs: torch.Tensor):
+        """Norms over the (sharded) constraint rows, one all-reduce."""
+        return _comm.norms(self.axis, *vs)
+
 
 def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
-          adapt_rho, batched):
+          adapt_rho, batched, n_rows=None):
     """The ADMM iteration on a batch (see :func:`admm_box_qp`).  ``H``
     (r, r) or (b, r, r), ``c`` (b, r), ``lo``/``hi`` (q,) or (b, q),
-    ``AtA`` (r, r) or (b, r, r)."""
+    ``AtA`` (r, r) or (b, r, r); ``n_rows`` the active constraint-row
+    count of the residual normalizations (default ``A.shape[0]``)."""
     b, r = c.shape
     dtype, dev = c.dtype, c.device
     if rho is None:
@@ -206,7 +219,7 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
     # tol == 0 keeps the exact fixed budget
     eps_rel = 10.0 * eps
     normA = torch.sqrt(_trace(AtA))
-    sqrt_n = float(op.A.shape[0]) ** 0.5
+    sqrt_n = float(op.A.shape[0] if n_rows is None else n_rows) ** 0.5
     sqrt_r = float(r) ** 0.5
 
     def factor(rho):
@@ -245,13 +258,13 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
         if not need_norms:
             g, z, w = g_n, z_n, w_n
             continue
-        pri_n = torch.linalg.vector_norm(Ag - z_n, dim=-1) / sqrt_n
+        nrm = op.norms(Ag - z_n, z_n, *((Ag,) if has_tol else ()))
+        pri_n = nrm[0] / sqrt_n
         dua_n = rho * torch.linalg.vector_norm(op.adj(z_n - z),
                                                dim=-1) / sqrt_r
-        z_scale = torch.linalg.vector_norm(z_n, dim=-1) / sqrt_n
+        z_scale = nrm[1] / sqrt_n
         if has_tol:
-            pri_thr = tol + eps_rel * torch.maximum(
-                torch.linalg.vector_norm(Ag, dim=-1) / sqrt_n, z_scale)
+            pri_thr = tol + eps_rel * torch.maximum(nrm[2] / sqrt_n, z_scale)
             dua_thr = tol + eps_rel * rho * normA * z_scale / sqrt_r
         else:
             pri_thr = dua_thr = 0.0
@@ -286,8 +299,7 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
         # (the last iterate's primal residual); no z_{k-1} is kept, so the
         # dual residual is NaN by contract
         Ag = op.fwd(g)
-        pri = torch.linalg.vector_norm(Ag - torch.clamp(Ag, lo, hi),
-                                       dim=-1) / sqrt_n
+        pri = op.norms(Ag - torch.clamp(Ag, lo, hi))[0] / sqrt_n
         dua = torch.full((b,), float("nan"), dtype=dtype, device=dev)
     info = ADMMInfo(iterations=k, primal_residual=pri, dual_residual=dua)
     if not batched:
@@ -324,8 +336,8 @@ def _batch_size(*xs) -> int:
 
 def admm_box_qp(H, c, A, lo, hi, AtA=None, rho=None, max_iter: int = 2000,
                 tol: float = 1e-8, over_relax: float = 1.6,
-                adapt_rho: bool = True
-                ) -> Tuple[torch.Tensor, ADMMInfo]:
+                n_rows: Optional[int] = None, adapt_rho: bool = True,
+                axis=None) -> Tuple[torch.Tensor, ADMMInfo]:
     """Solve ``min ½ gᵀH g − cᵀg  s.t. lo ≤ A g ≤ hi``.
 
     H : (r, r) PSD Hessian, or (b, r, r) one per batch element.
@@ -335,32 +347,44 @@ def admm_box_qp(H, c, A, lo, hi, AtA=None, rho=None, max_iter: int = 2000,
     AtA : optional (r, r) Gram ``AᵀA`` when known (e.g. the identity for an
         orthonormal basis), skipping the n-row product.
     rho : optional ADMM penalty; defaults to ``tr(H)/tr(AᵀA)``.
+    n_rows : the ACTIVE constraint-row count of the residual
+        normalizations, default ``A.shape[0]``.  Sharded serving pads the
+        constraint set with inert rows (zero operator rows, [0, 0] bounds)
+        to a multiple of the shard count; those rows add exact zeros to
+        every product and norm, so with the unpadded count here the
+        iteration, ρ schedule included, is that of the unpadded solve.
     adapt_rho : True keeps the residual-balancing ρ schedule; False is the
         fixed-ρ path for fixed-budget serving: the factorization is
         computed once and, with ``tol == 0``, the per-iteration residual
         norms are skipped (one final pass fills :class:`ADMMInfo`, whose
         dual residual is then NaN).
+    axis : a :class:`..parallel._comm.Axis` over which ``A``'s rows (and
+        ``lo``, ``hi``) are sharded: ``A`` is this rank's block, and the
+        (b, r) adjoint products and (b,) norms are all-reduced.
 
     Returns ``(g, info)``: g (r,) or (b, r) when any argument is batched,
     ``info`` with per-element fields."""
     H, c, A, lo, hi, AtA, batched = _prepare(H, c, A, lo, hi, AtA)
+    axis = _comm.active(axis)
     if AtA is None:
-        AtA = A.T @ A
+        AtA = A.T @ A if axis is None else axis.sum(A.T @ A)
     b = _batch_size((c, 2), (H, 3), (lo, 2), (hi, 2), (AtA, 3))
     c = torch.broadcast_to(c, (b, c.shape[-1]))
-    return _admm(H, c, _Operator(A), lo, hi, AtA, rho, max_iter, tol,
-                 over_relax, adapt_rho, batched)
+    return _admm(H, c, _Operator(A, axis=axis), lo, hi, AtA, rho, max_iter,
+                 tol, over_relax, adapt_rho, batched, n_rows)
 
 
 def box_constrained_lstsq(Theta, y, w_diag, A, lo, hi, AtA=None,
                           max_iter: int = 2000, tol: float = 1e-8,
                           over_relax: float = 1.6,
-                          adapt_rho: bool = True
+                          n_rows: Optional[int] = None,
+                          adapt_rho: bool = True, axis=None
                           ) -> Tuple[torch.Tensor, ADMMInfo]:
     """``min ‖diag(w)(y − Θ g)‖²  s.t. lo ≤ A g ≤ hi`` (COLS, CPOD).
     ``y`` and ``w_diag`` are (s,) or (b, s), one weighted problem per
     row.  The half-factor convention cancels: the stationary points are
-    those of the unhalved objective."""
+    those of the unhalved objective.  ``n_rows`` and ``axis`` as in
+    :func:`admm_box_qp`."""
     if not isinstance(Theta, torch.Tensor):
         Theta = np.asarray(Theta)
         Theta = torch.as_tensor(Theta if Theta.dtype == np.float32
@@ -372,13 +396,15 @@ def box_constrained_lstsq(Theta, y, w_diag, A, lo, hi, AtA=None,
     H = Wt.mT @ Wt
     c = (Wt.mT @ Wy[..., None])[..., 0]
     return admm_box_qp(H, c, A, lo, hi, AtA=AtA, max_iter=max_iter, tol=tol,
-                       over_relax=over_relax, adapt_rho=adapt_rho)
+                       over_relax=over_relax, n_rows=n_rows,
+                       adapt_rho=adapt_rho, axis=axis)
 
 
 def box_constrained_map(mean, cov, A, lo, hi, AtA=None,
                         max_iter: int = 2000, tol: float = 1e-8,
                         over_relax: float = 1.6,
-                        adapt_rho: bool = True
+                        n_rows: Optional[int] = None,
+                        adapt_rho: bool = True, axis=None
                         ) -> Tuple[torch.Tensor, ADMMInfo]:
     """Gaussian MAP under linear constraints, ``max −(v−μ)ᵀ cov⁻¹ (v−μ)
     s.t. lo ≤ A v ≤ hi`` — the constrained GP prediction.  ``mean`` (r,)
@@ -388,8 +414,9 @@ def box_constrained_map(mean, cov, A, lo, hi, AtA=None,
     μ)`` the problem is ``min ½‖u‖²  s.t.  lo − Aμ ≤ (A L) u ≤ hi − Aμ``,
     identity Hessian, one triangular transform each way.  ``A L`` is
     applied as ``A (L u)``, so a batch of points shares the (n, r)
-    products."""
+    products.  ``n_rows`` and ``axis`` as in :func:`admm_box_qp`."""
     cov, mean, A, lo, hi, AtA, batched = _prepare(cov, mean, A, lo, hi, AtA)
+    axis = _comm.active(axis)
     b = _batch_size((mean, 2), (cov, 3), (lo, 2), (hi, 2))
     r = mean.shape[-1]
     L = torch.broadcast_to(cholesky_nan(cov), (b, r, r))
@@ -398,10 +425,10 @@ def box_constrained_map(mean, cov, A, lo, hi, AtA=None,
     c = torch.zeros((b, r), dtype=mean.dtype, device=mean.device)
     A_mu = mean @ A.T
     if AtA is None:
-        AtA = A.T @ A
+        AtA = A.T @ A if axis is None else axis.sum(A.T @ A)
     ALtAL = L.mT @ (AtA @ L)
-    u, info = _admm(H, c, _Operator(A, L), lo - A_mu, hi - A_mu, ALtAL, None,
-                    max_iter, tol, over_relax, adapt_rho, True)
+    u, info = _admm(H, c, _Operator(A, L, axis), lo - A_mu, hi - A_mu, ALtAL,
+                    None, max_iter, tol, over_relax, adapt_rho, True, n_rows)
     v = mean + (L @ u[..., None])[..., 0]
     if not batched:
         return v[0], ADMMInfo(*(t[0] for t in info))

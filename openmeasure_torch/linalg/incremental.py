@@ -43,18 +43,25 @@ import numpy as np
 import torch
 
 from ..core.device import as_tensor, to_numpy_once
+from ..parallel._comm import active, axis_of
 
 
-def _project_residual(U: torch.Tensor, Xn: torch.Tensor, reorth: bool):
+def _project_residual(U: torch.Tensor, Xn: torch.Tensor, reorth: bool,
+                      axis=None):
     """Projection coefficients and the out-of-span residual, the panel
-    passes every update variant shares."""
+    passes every update variant shares.  With ``axis`` the rows of U and
+    Xn are sharded and the (r, q) products are all-reduced."""
+    def proj(B):
+        P = U.T @ B
+        return P if axis is None else axis.sum(P)
+
     Xn = Xn.to(U.dtype)
-    M = U.T @ Xn
+    M = proj(Xn)
     Res = Xn - U @ M
     if reorth:
         # one CGS re-orthogonalization pass: removes the O(eps·κ) part of
         # Res still in span(U)
-        M2 = U.T @ Res
+        M2 = proj(Res)
         Res = Res - U @ M2
         M = M + M2
     return M, Res
@@ -133,7 +140,7 @@ def svd_append_columns_eager(
 
 def svd_append_columns_cholqr(
     U: torch.Tensor, S: torch.Tensor, Vt: torch.Tensor, Xn: torch.Tensor,
-    reorth: bool = True,
+    reorth: bool = True, mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`svd_append_columns` with the residual orthogonalized through
     its (q, q) Gram (the CholQR class), the form for row-sharded bases: only
@@ -149,13 +156,22 @@ def svd_append_columns_cholqr(
     ``R⁻¹ = W diag(1/√e)``.  ``Q R ≡ Res`` holds by construction, so the
     factorization still reproduces the concatenation; only Q's
     orthonormality degrades in near-null directions, which truncation
-    discards."""
+    discards.
+
+    With ``mesh`` the rows of U and Xn are sharded over its ``state``
+    axis (each rank passes its rows): the (r, q) projections and the
+    (q, q) Gram are all-reduced, the core and its SVD are replicated, and
+    each rank gets its rows of U'."""
+    axis = active(axis_of(mesh))
     r = S.shape[0]
     q = Xn.shape[1]
     n = U.shape[0]
     dt = U.dtype
-    M, Res = _project_residual(U, Xn, reorth)
+    M, Res = _project_residual(U, Xn, reorth, axis)
     G_R = Res.T @ Res                                        # (q, q)
+    if axis is not None:
+        G_R = axis.sum(G_R)
+        n = int(axis.sum(torch.tensor([n], device=U.device)))
     e, Wg = torch.linalg.eigh(G_R)                           # ascending
     finfo = torch.finfo(dt)
     floor = torch.clamp(finfo.eps * float(n) ** 0.5 * e[-1], min=finfo.tiny)

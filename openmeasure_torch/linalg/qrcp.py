@@ -20,9 +20,11 @@ it is given: no host synchronization per step.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from ..parallel._comm import pick
 
 
 def _rowsum(terms) -> torch.Tensor:
@@ -34,10 +36,21 @@ def _rowsum(terms) -> torch.Tensor:
     return acc
 
 
-def _sweep(A: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _sweep(A: torch.Tensor, k: int, axis=None,
+           gidx: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k-step sweep; returns ``(pivots int32 (k,), final deflated
     norms² (n,))`` — the norms (−inf at the pivots) let a caller compare
     this version's arithmetic with the kernel's.
+
+    With ``axis`` (a :class:`..parallel._comm.Axis` of several ranks) the
+    panel's columns are sharded: ``A`` is this rank's (r, n_local) block
+    and ``gidx`` the global index of each of its columns.  The argmax and
+    the pivot column come from every rank (:func:`..parallel._comm.pick`,
+    the unsharded tie rule), the rest of each step is column-local and
+    does the same operations on each column, so the pivots and final
+    norms equal the unsharded sweep's bit for bit; the norms returned are
+    this rank's.
 
     Every sum runs sequentially in a fixed order (over rows for the norms,
     the projections and the Gram-Schmidt coefficients, over accepted
@@ -53,8 +66,11 @@ def _sweep(A: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     Q = torch.zeros((r, k), dtype=A.dtype, device=A.device)
     pivots = torch.zeros((k,), dtype=torch.int32, device=A.device)
     for i in range(k):
-        j = torch.argmax(norms2).reshape(1)      # stays on the device
-        col = A.index_select(1, j)[:, 0]
+        if axis is None:
+            j = torch.argmax(norms2).reshape(1)  # stays on the device
+            col = A.index_select(1, j)[:, 0]
+        else:
+            j, _, (col,) = pick(axis, norms2, gidx, A.T)
         # two Gram-Schmidt passes (CGS2) against the i accepted directions
         for _ in range(2 if i else 0):
             coef = _rowsum(Q[m, :i] * col[m] for m in rows)
@@ -63,7 +79,10 @@ def _sweep(A: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         q = col / torch.sqrt(torch.clamp(ss, min=tiny))
         proj = _rowsum(q[m] * A[m] for m in rows)   # read-only panel pass
         norms2 = norms2 - proj * proj
-        norms2.index_fill_(0, j, float("-inf"))  # never re-pick
+        if axis is None:
+            norms2.index_fill_(0, j, float("-inf"))  # never re-pick
+        else:
+            norms2 = torch.where(gidx == j, float("-inf"), norms2)
         Q[:, i] = q
         pivots[i:i + 1] = j.to(torch.int32)
     return pivots, norms2

@@ -24,7 +24,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .qrcp import qrcp_pivots
+from .qrcp import _sweep, qrcp_pivots
 
 K_MAX = 128         # pivot cap of the kernel (and of the TPU kernels)
 THREADS = 1024      # threads per block, kThreads of csrc/qrcp.cu
@@ -251,3 +251,27 @@ def qrcp_pivots_auto(A: torch.Tensor, k: int,
     if row_scale is not None:
         A = A * row_scale[:, None]
     return qrcp_pivots(A, k)
+
+
+def qrcp_pivots_sharded(A: torch.Tensor, k: int, mesh=None,
+                        gidx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """QRCP pivots of a panel whose columns are sharded over the mesh's
+    ``state`` axis: ``A`` is this rank's (r, n_local) block, ``gidx`` the
+    global index of each of its columns (default: the ranks' blocks
+    stacked in rank order).  Returns the global int32 pivots (k,),
+    replicated.
+
+    The JAX package's sharded-operand rule (``qrcp_pivots_auto``'s gate):
+    on an axis of one rank the panel is whole and takes
+    :func:`qrcp_pivots_auto` — the CUDA kernel for a CUDA fp32 panel; on
+    more ranks the plain sweep's arithmetic runs on each rank's columns
+    with the argmax all-gathered and the pivot column taken from its
+    owner, bit-equal to the unsharded plain sweep.  No kernel runs then,
+    as a Pallas call is not partitioned in the JAX package either."""
+    from ..parallel._comm import active, axis_of, local_gidx
+    ax = active(axis_of(mesh))
+    if ax is None:
+        return qrcp_pivots_auto(A, k)
+    if gidx is None:
+        gidx = local_gidx(ax, A.shape[1], A.device)
+    return _sweep(A, k, ax, gidx)[0]

@@ -29,27 +29,41 @@ import numpy as np
 import torch
 
 from ..core.device import as_tensor, to_numpy_once
+from ..parallel._comm import active, axis_of, local_gidx, pick
 
 
-def _nanvar_max(Ur: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _nanvar_max(Ur: torch.Tensor, mask: torch.Tensor,
+                axis=None) -> torch.Tensor:
     """``nanmax(var(where(mask, Ur, nan), ddof=1, axis=1))``: the largest
     row variance over the rows the mask keeps, ignoring NaN variances
-    (NaN when every kept variance is NaN, or no row is kept)."""
+    (NaN when every kept variance is NaN, or no row is kept).  With
+    ``axis`` the rows are sharded and the maximum and the "any kept"
+    flag are all-reduced."""
     var = torch.var(Ur, dim=1, correction=1)
     nan = torch.full((), float("nan"), dtype=var.dtype, device=var.device)
     var = torch.where(mask, var, nan)
     ok = ~torch.isnan(var)
     top = torch.amax(torch.where(ok, var, float("-inf")))
-    return torch.where(torch.any(ok), top, nan)
+    if axis is None:
+        return torch.where(torch.any(ok), top, nan)
+    top, any_ok = axis.max(torch.stack([top, torch.any(ok).to(top.dtype)]))
+    return torch.where(any_ok > 0, top, nan)
 
 
-def _gem_select(Ur, xyz, mask, d_min, n_sensors: int):
+def _gem_select(Ur, xyz, mask, d_min, n_sensors: int, axis=None,
+                gidx=None):
     """The selection on the device: (selected int32 (s,), step scores (s,),
-    running entropy (s,), σ²_y per row (n,))."""
+    running entropy (s,), σ²_y per row (n,)).
+
+    With ``axis`` (several ranks) ``Ur``, ``xyz`` and ``mask`` are this
+    rank's rows, ``gidx`` their global indices: the scores stay
+    row-local, each step's argmax and selected row come from
+    :func:`..parallel._comm.pick`, and the selection is global; σ²_y is
+    this rank's rows'."""
     n, r = Ur.shape
     dtype, dev = Ur.dtype, Ur.device
 
-    coef = 2.0 / torch.sqrt(_nanvar_max(Ur, mask))
+    coef = 2.0 / torch.sqrt(_nanvar_max(Ur, mask, axis))
     Ur_scl = Ur * coef
     row_mean = torch.mean(Ur_scl, dim=1, keepdim=True)
     Uc = Ur_scl - row_mean                     # row-centered (np.cov style)
@@ -79,27 +93,40 @@ def _gem_select(Ur, xyz, mask, d_min, n_sensors: int):
             quad = torch.sum((Sigma_ya @ Sigma_aa_inv) * Sigma_ya, dim=1)
             scores = torch.where(alive, sigma2y_all - quad, neg_inf)
             is_later = 1.0
-        i = torch.argmax(scores).reshape(1)    # stays on the device
-        best = scores.index_select(0, i)[0]
+        # the argmax and the selected rows stay on the device
+        i, best, (c_row, x_row) = pick(axis, scores, gidx, Uc, xyz)
         H_tot = H_tot + is_later * (0.5 * torch.log(best) + log2pi1)
-        Cs[s] = Uc.index_select(0, i)[0]
+        Cs[s] = c_row
         selected[s:s + 1] = i.to(torch.int32)
         step_scores[s] = best
         step_H[s] = H_tot
-        d = torch.linalg.vector_norm(xyz - xyz.index_select(0, i), dim=1)
+        d = torch.linalg.vector_norm(xyz - x_row, dim=1)
         alive = alive & (d >= d_min)
     return selected, step_scores, step_H, sigma_coef
 
 
 def gem_select(Ur, xyz_tiled, n_sensors: int, mask=None, d_min: float = 0.0,
-               verbose: bool = False) -> np.ndarray:
+               verbose: bool = False, mesh=None, gidx=None) -> np.ndarray:
     """Select sensor rows of Ur by greedy conditional-entropy maximization.
 
     ``Ur`` (n, r) basis tensor; ``xyz_tiled`` (n, 3) positions, tiled by
     feature to match Ur's rows; ``mask`` optional (n,) bool search region;
     ``d_min`` the minimum inter-sensor distance.  The selection runs on
     Ur's device.  Returns the global row indices, int64 (n_sensors,), on
-    the host (read once, with the exhaustion check's step scores)."""
+    the host (read once, with the exhaustion check's step scores).
+
+    With ``mesh`` Ur's rows are sharded over its ``state`` axis: ``Ur``,
+    ``xyz_tiled`` and ``mask`` are this rank's rows and ``gidx`` their
+    global indices (default: the ranks' blocks in rank order); the indices
+    returned are global, the same on every rank.  The verbose table needs
+    every row's σ²_y and is not offered then."""
+    axis = active(axis_of(mesh))
+    if axis is not None:
+        if verbose:
+            raise ValueError("verbose=True prints every row's sigma^2_y; "
+                             "run it on the unsharded basis.")
+        if gidx is None:
+            gidx = local_gidx(axis, Ur.shape[0], Ur.device)
     n = Ur.shape[0]
     dev, dtype = Ur.device, Ur.dtype
     mask_np = (np.ones((n,), dtype=bool) if mask is None
@@ -107,7 +134,7 @@ def gem_select(Ur, xyz_tiled, n_sensors: int, mask=None, d_min: float = 0.0,
     xyz = as_tensor(np.asarray(xyz_tiled), dev, dtype=dtype)
     d = torch.tensor(float(d_min), dtype=dtype, device=dev)
     selected, step_scores, step_H, sigma_coef = _gem_select(
-        Ur, xyz, as_tensor(mask_np, dev), d, n_sensors)
+        Ur, xyz, as_tensor(mask_np, dev), d, n_sensors, axis, gidx)
     # one read: the verbose table needs σ²_y of every row as well
     wanted = (selected, step_scores, step_H) + ((sigma_coef,) if verbose
                                                  else ())

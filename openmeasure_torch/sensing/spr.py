@@ -34,13 +34,16 @@ on the model's device.
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..core.device import as_tensor, to_numpy
 from ..linalg import boxls as _boxls
 from ..linalg import qrcp as _qrcp
-from ..linalg.qrcp_cuda import qrcp_pivots_auto
-from ..rom.rom import ROM, apply_sampling, scale_measurement_values
+from ..linalg.qrcp_cuda import qrcp_pivots_sharded
+from ..parallel._comm import active, axis_of, gather_rows
+from ..rom.rom import (ROM, apply_sampling, is_torch_sparse,
+                       scale_measurement_values, torch_sparse_to_scipy)
 from .dg import dg_select
 from .gem import gem_select
 from .vector import vector_dg_select, vector_onehot
@@ -93,8 +96,10 @@ class SPR(ROM):
         self._cols_cache = None
 
     def gem(self, Ur, n_sensors, mask, d_min, verbose):
-        xyz_tiled = np.tile(np.asarray(self.xyz), (self.n_features, 1))
-        return gem_select(Ur, xyz_tiled, n_sensors, mask, d_min, verbose)
+        mesh, _, gidx, (a, b) = self._shard_axis()
+        xyz_tiled = np.tile(np.asarray(self.xyz), (self.n_features, 1))[a:b]
+        return gem_select(Ur, xyz_tiled, n_sensors, mask, d_min, verbose,
+                          mesh=mesh, gidx=gidx)
 
     def _onehot_rows(self, P, n):
         """One-hot C (len(P), n) in the basis's dtype on its device."""
@@ -133,28 +138,61 @@ class SPR(ROM):
             d_min = config.d_min
             verbose = config.verbose
         n = self.X.shape[0]
+        # on a sharded fit (``fit(mesh=...)``) Ur, the mask and the
+        # selections' scores are this rank's rows; C is global (s, n)
+        mesh, axis, gidx, (a, b) = self._shard_axis()
+        if mask is not None:
+            mask = np.asarray(mask, dtype=bool)
+        mask_l = None if mask is None else mask[a:b]
+        if calc_type in ("qr", "dg") and mask_l is not None:
+            self._zero_masked_rows(mask_l)
         if calc_type == "qr":
-            if mask is not None:
-                self._zero_masked_rows(mask)
             # Ur.T is an (r, n) view of the (n, r) basis: the kernel reads
             # it through its strides, no copy
-            pivots = qrcp_pivots_auto(self.Ur.T, self.r)
+            pivots = qrcp_pivots_sharded(self.Ur.T, self.r, mesh, gidx)
             return _qrcp.pivots_to_onehot(pivots, n).to(self.Ur.dtype)
         if calc_type == "gem":
             return self._onehot_rows(
-                self.gem(self.Ur, n_sensors, mask, d_min, verbose), n)
+                self.gem(self.Ur, n_sensors, mask_l, d_min, verbose), n)
         if calc_type == "dg":
-            if mask is not None:
-                self._zero_masked_rows(mask)
-            return self._onehot_rows(dg_select(self.Ur, n_sensors, mask), n)
+            return self._onehot_rows(
+                dg_select(self.Ur, n_sensors, mask_l, mesh=mesh, gidx=gidx),
+                n)
         if calc_type == "vdg":
-            P = vector_dg_select(self.Ur, self.n_features, n_sensors, mask,
+            # whole per-point blocks: the basis gathered from the ranks
+            Ur = self.Ur if axis is None else gather_rows(self.Ur, mesh)
+            P = vector_dg_select(Ur, self.n_features, n_sensors, mask,
                                  xyz=self.xyz, d_min=d_min)
             self.sensor_points = P
             return vector_onehot(P, self.n_features, self.n_points,
                                  dtype=self.Ur.dtype, device=self.device)
         raise NotImplementedError(
             "The sensor selection method has not been implemented yet")
+
+    def _shard_axis(self):
+        """This rank's view of the basis: ``(mesh, axis of several ranks or
+        None, global indices of its rows, (first, stop))``; an unsharded
+        fit is ``(None, None, None, (0, n))``."""
+        mesh = getattr(self, "fit_mesh_", None)
+        if mesh is None:
+            return None, None, None, (0, self.Ur.shape[0])
+        a, b = getattr(self, "_shard_rows", (0, self.Ur.shape[0]))
+        axis = active(axis_of(mesh))
+        gidx = torch.arange(a, b, dtype=torch.int64, device=self.device)
+        return mesh, axis, gidx, (a, b)
+
+    def _sample(self, C, M: torch.Tensor) -> torch.Tensor:
+        """``C @ M`` for a global operator C (s, n) and M with the basis's
+        rows: on a sharded fit, this rank's columns of C times its rows of
+        M, all-reduced over the ranks."""
+        if getattr(self, "fit_mesh_", None) is None:
+            return apply_sampling(C, M)
+        _, axis, _, (a, b) = self._shard_axis()
+        if is_torch_sparse(C):
+            C = torch_sparse_to_scipy(C)
+        C_l = C.tocsc()[:, a:b] if sp.issparse(C) else C[:, a:b]
+        part = apply_sampling(C_l, M)
+        return part if axis is None else axis.sum(part)
 
     # ------------------------------------------------------------------ #
     # Train
@@ -192,10 +230,10 @@ class SPR(ROM):
                              " number of rows of X.")
         if not is_Theta:
             self.C = C
-            Theta = apply_sampling(C, self.Ur)
+            Theta = self._sample(C, self.Ur)
             # constant across predicts (see scale_vector)
             self._cnt_vector_cache = to_numpy(
-                apply_sampling(C, self.X_cnt[:, 0]))
+                self._sample(C, self.X_cnt[:, 0]))
         else:
             Theta = self._t(C)
             # a previous train(C) must not survive: scale_vector would
@@ -316,11 +354,14 @@ class SPR(ROM):
             raise NotImplementedError(
                 "The prediction method selected has not been implemented yet")
         A_c, lo, hi, AtA = self._cols_set()
+        sharded = getattr(self, "fit_mesh_", None) is not None
+        axis = self._shard_axis()[1]
         Ar, self.admm_info = _boxls.box_constrained_lstsq(
             self.Theta, as_tensor(y0_np[:, :, 0], self.device, dtype=dtype),
             as_tensor(w_np, self.device, dtype=dtype), A_c, lo, hi, AtA=AtA,
             max_iter=self.admm_max_iter, tol=self.admm_tol,
-            over_relax=self.admm_over_relax)
+            over_relax=self.admm_over_relax,
+            n_rows=self.X.shape[0] if sharded else None, axis=axis)
         return Ar, Ar_sigma
 
     def _cols_set(self):
@@ -329,6 +370,9 @@ class SPR(ROM):
         limits, the constraints and Ur are train-time constants, and the
         O(n r²) Gram is exact (``UrᵀUr`` is not I after a masked
         placement)."""
+        if getattr(self, "_cols_cache", None) is None \
+                and getattr(self, "fit_mesh_", None) is not None:
+            self._cols_cache = self._sharded_cols_set()
         if getattr(self, "_cols_cache", None) is None:
             box = None
             if self.limits is not None:
@@ -344,3 +388,32 @@ class SPR(ROM):
                            for x in cs)
             self._cols_cache = (A_c, lo, hi, A_c.T @ A_c)
         return self._cols_cache
+
+    def _sharded_cols_set(self):
+        """The COLS box on a sharded fit: this rank's rows of Ur and of the
+        scaled limits (the per-feature ±1000 test reduced over the ranks),
+        the all-reduced UᵀU.  A general ``constraints`` set has global
+        rows and is not taken here."""
+        if getattr(self, "constraints", None) is not None:
+            raise NotImplementedError(
+                "a general constraints set on a sharded fit: shard its rows "
+                "and call linalg.boxls with axis=, or use limits only.")
+        if self.limits is None:
+            raise ValueError(
+                "method='COLS' requires physical `limits` passed to "
+                "train(C, ...).")
+        from ..parallel.sharded import _scale_limits_rows
+        _, axis, gidx, _ = self._shard_axis()
+        dt = self.Theta.dtype
+        cnt = self.X_cnt[:, 0].to(dt)
+        scl = self.X_scl[:, 0].to(dt)
+        if axis is None:
+            lo, hi = self.scale_limits(self.limits)
+            lo, hi = (as_tensor(x, self.device, dtype=dt) for x in (lo, hi))
+            return self.Ur.to(dt), lo, hi, self.Ur.T.to(dt) @ self.Ur.to(dt)
+        lo, hi = _scale_limits_rows(
+            np.asarray(self.limits[0], np.float64),
+            np.asarray(self.limits[1], np.float64), cnt, scl,
+            gidx // self.n_points, self.n_features, axis)
+        A_c = self.Ur.to(dt)
+        return A_c, lo, hi, axis.sum(A_c.T @ A_c)

@@ -33,14 +33,19 @@ import torch
 
 from ..core.device import DeviceLike, as_tensor, resolve_device, to_numpy_once
 from ..linalg.chol import cholesky_nan
+from ..parallel._comm import active, axis_of, local_gidx, pick
 
 
 def _vdg_select(blocks: torch.Tensor, alive0: torch.Tensor,
                 ridge: torch.Tensor, xyz: torch.Tensor, d_min: torch.Tensor,
-                n_sensors: int):
+                n_sensors: int, axis=None, gidx=None):
     """Greedy regularized-D-optimal selection over per-point blocks
     (n_points, p, r).  Returns (points int32 (n_sensors,), step scores
-    (n_sensors,)), on the blocks' device."""
+    (n_sensors,)), on the blocks' device.  With ``axis`` (several ranks)
+    the points are sharded: ``blocks``, ``alive0`` and ``xyz`` are this
+    rank's points, ``gidx`` their global indices; the scores stay
+    point-local and each step's argmax and selected block come from every
+    rank (:func:`..parallel._comm.pick`)."""
     n_points, p, r = blocks.shape
     dtype, dev = blocks.dtype, blocks.device
     eye_p = torch.eye(p, dtype=dtype, device=dev)
@@ -61,23 +66,23 @@ def _vdg_select(blocks: torch.Tensor, alive0: torch.Tensor,
         logdet = 2.0 * torch.sum(
             torch.log(torch.diagonal(L, dim1=1, dim2=2)), dim=1)
         logdet = torch.where(alive, logdet, float("-inf"))
-        j = torch.argmax(logdet).reshape(1)
-        Bj = blocks.index_select(0, j)[0]                  # (p, r)
-        G = G + Bj.T @ Bj
+        j, best, (Bj, xj) = pick(axis, logdet, gidx, blocks, xyz)
+        G = G + Bj.T @ Bj                                  # Bj (p, r)
         G = 0.5 * (G + G.T)
-        alive = alive.index_fill(0, j, False)
+        alive = (alive.index_fill(0, j, False) if axis is None
+                 else alive & (gidx != j))
         # minimum inter-probe distance: kill every point within d_min of
         # the new probe
-        dist = torch.linalg.vector_norm(xyz - xyz.index_select(0, j), dim=1)
+        dist = torch.linalg.vector_norm(xyz - xj, dim=1)
         alive = alive & (dist >= d_min)
         points[i:i + 1] = j.to(torch.int32)
-        scores[i:i + 1] = logdet.index_select(0, j)
+        scores[i] = best
     return points, scores
 
 
 def vector_dg_select(Ur, n_features: int, n_sensors: int, mask=None,
-                     ridge: float = 1e-6, xyz=None,
-                     d_min: float = 0.0) -> np.ndarray:
+                     ridge: float = 1e-6, xyz=None, d_min: float = 0.0,
+                     mesh=None, point_gidx=None) -> np.ndarray:
     """Select ``n_sensors`` spatial POINTS for vector sensors measuring all
     ``n_features`` features at once, on the device of the basis tensor Ur
     (n, r) with feature-blocked rows.
@@ -87,7 +92,15 @@ def vector_dg_select(Ur, n_features: int, n_sensors: int, mask=None,
     are).  ``ridge`` is the relative regularization δ (scaled by the mean
     block energy).  ``xyz`` (n_points, 3) with ``d_min`` enforces a minimum
     inter-probe distance.  Returns int64 (n_sensors,) point indices on the
-    host; raises when the mask/d_min exhaust the candidates."""
+    host; raises when the mask/d_min exhaust the candidates.
+
+    With ``mesh`` the points are sharded over its ``state`` axis: ``Ur``
+    holds this rank's points of every feature block (the feature-blocked
+    layout of :func:`..parallel.sharded.shard_snapshots`), ``mask`` and
+    ``xyz`` this rank's points, ``point_gidx`` their global indices
+    (default: the ranks' points in rank order).  δ's two scalars are
+    all-reduced before they are read, and the points are global."""
+    axis = active(axis_of(mesh))
     n, r = Ur.shape
     if n % n_features != 0:
         raise ValueError("Ur rows are not divisible by n_features.")
@@ -106,6 +119,10 @@ def vector_dg_select(Ur, n_features: int, n_sensors: int, mask=None,
     else:
         m = np.ones((n_points,), dtype=bool)
     n_avail = int(m.sum())
+    if axis is not None:
+        n_avail = int(axis.sum(torch.tensor([n_avail], device=dev)))
+        if point_gidx is None:
+            point_gidx = local_gidx(axis, n_points, dev)
     if n_sensors > n_avail:
         raise ValueError(
             f"vector placement ran out of candidates: {n_sensors} sensors "
@@ -125,16 +142,21 @@ def vector_dg_select(Ur, n_features: int, n_sensors: int, mask=None,
     # δ relative to the data scale: mean per-block energy / p, floored so
     # that Gram rounding stays well below the identity shift
     block_e = torch.sum(blocks * blocks, dim=(1, 2))
-    energy = float(torch.mean(block_e)) / n_features
+    if axis is not None:
+        # every point's energy (n_points scalars), so δ is the unsharded
+        # mean to the bit
+        block_e = axis.gather_cat(block_e)
+    e_mean, e_max = torch.mean(block_e), torch.amax(block_e)
+    energy = float(e_mean) / n_features
     eps = float(torch.finfo(blocks.dtype).eps)
-    floor = 64.0 * n_features * eps * float(torch.amax(block_e))
+    floor = 64.0 * n_features * eps * float(e_max)
     delta = torch.tensor(max(ridge * energy, floor,
                              float(np.finfo(np.float32).tiny)),
                          dtype=blocks.dtype, device=dev)
     points, scores = _vdg_select(
         blocks, as_tensor(m, dev), delta, as_tensor(xyz_np, dev),
         torch.tensor(float(d_min), dtype=torch.float32, device=dev),
-        n_sensors)
+        n_sensors, axis, point_gidx)
     out, scores = to_numpy_once(points, scores)
     out = out.astype(np.int64)
     # the step SCORE (-inf exactly on an exhausted step) is the signal;

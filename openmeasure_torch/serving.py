@@ -35,11 +35,15 @@ iteration budget (``tol = 0``): every request does the same work, and the
 budget is the accuracy knob.  The Kalman filter's scan over frames is a
 Python loop over device tensors: a batch of K frames reads nothing back.
 
-Sharding the state over several cards (``shard``, ``shard_state_rows``)
-and loading ``.npz`` checkpoints (``load``) come with ROADMAP.md §A item
-14, and raise until then.  A measurement operator may be dense,
-``scipy.sparse`` or a torch sparse COO or CSR tensor (the port's
-counterpart of the JAX package's BCOO).
+``shard(mesh)`` row-shards a sensor's n-row state over a mesh axis
+(:func:`shard_state_rows`): each rank keeps its rows of ``Ur``, the
+unscaling vectors and the constraint set, the reconstruct and the ADMM's
+constraint products run shard-local with (r,)-sized all-reduces, and a
+field output is this rank's rows (documented deviation: the JAX package
+returns one global array; :func:`..parallel.gather_rows` assembles it).
+``load`` builds a sensor from an ``.npz`` checkpoint.  A measurement
+operator may be dense, ``scipy.sparse`` or a torch sparse COO or CSR
+tensor (the port's counterpart of the JAX package's BCOO).
 
 Documented deviation: ``GPRSensor.from_gpr`` casts the GP parameters and
 training set to the sensor's dtype (the basis's) on its device; the JAX
@@ -69,13 +73,62 @@ from .multifi.mfk import predict_levels_batch
 from .rom.rom import is_torch_sparse, torch_sparse_to_scipy
 from .sensing.decoder import _forward as _decoder_forward
 
-_ITEM_14_3 = "(ROADMAP.md §A item 14.3: sharding over torch.distributed)"
+_ROW_KEYS = ("Ur", "X_cnt", "X_scl", "A_c", "lo", "hi")
 
 
-def shard_state_rows(*args, **kwargs):
-    raise NotImplementedError(
-        "shard_state_rows (multi-card serving) is not ported yet "
-        f"{_ITEM_14_3}.")
+def shard_state_rows(state, mesh, axis_name: str = "state",
+                     row_keys=_ROW_KEYS):
+    """Row-shard a serving state over one mesh axis (multi-card serving).
+
+    Every tensor named in ``row_keys`` keeps this rank's block of its
+    leading dimension (the state dimension n: the tall axis of ``Ur`` and
+    of the constraint set); every other entry stays whole, replicated.
+    A leading dimension the axis size does not divide is padded to the
+    next multiple with inert rows — zero basis and constraint rows, unit
+    scale, [0, 0] bounds — so every rank holds the same count; the padded
+    rows add exact zeros to the products and norms, and field outputs are
+    cut back to the rank's real rows (``n_out``).  The ADMM's residual
+    normalizations take the active constraint-row count ``n_c``, not the
+    padded shape.  ``axis`` records the mesh axis for the solvers' (r,)-
+    sized all-reduces (``None`` on one rank, where the state is the whole
+    one and the sensor runs the unsharded code)."""
+    from .parallel._comm import Axis, active, row_range
+    ax = Axis.of(mesh, axis_name)
+    pad_value = {"X_scl": 1.0}
+    out = {}
+    for k, v in state.items():
+        if k in row_keys and isinstance(v, torch.Tensor) and v.ndim >= 1:
+            a, b, per = row_range(v.shape[0], ax.size, ax.rank)
+            blk = v[a:b].to(ax.device)
+            if b - a < per:
+                pad = torch.full((per - (b - a),) + tuple(v.shape[1:]),
+                                 pad_value.get(k, 0.0), dtype=v.dtype,
+                                 device=ax.device)
+                blk = torch.cat([blk, pad], dim=0)
+            out[k] = blk
+        else:
+            out[k] = v
+    if "Ur" in row_keys and "Ur" in state:
+        a, b, _ = row_range(state["Ur"].shape[0], ax.size, ax.rank)
+        out["n_out"] = b - a
+    out["axis"] = active(ax)
+    return out
+
+
+def _cut(state, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """A field output cut to this rank's real rows (sharded state)."""
+    n_out = state.get("n_out")
+    return x if n_out is None else x.narrow(dim, 0, n_out)
+
+
+def _sharded_copy(sensor, mesh, axis_name: str, row_keys=_ROW_KEYS):
+    """A shallow copy of ``sensor`` with its state row-sharded."""
+    import copy
+    from .parallel._comm import check_mesh
+    check_mesh(mesh)
+    new = copy.copy(sensor)
+    new._state = shard_state_rows(sensor._state, mesh, axis_name, row_keys)
+    return new
 
 
 def _predict_math(state, Y_values, Y_sigma, method, admm_iters, over_relax,
@@ -124,12 +177,13 @@ def _predict_math(state, Y_values, Y_sigma, method, admm_iters, over_relax,
         a, _ = _boxls.box_constrained_lstsq(
             Theta, y0, w, state["A_c"], state["lo"], state["hi"],
             AtA=state["AtA"], max_iter=admm_iters, tol=0.0,
-            over_relax=over_relax, adapt_rho=adapt_rho)
+            over_relax=over_relax, n_rows=state.get("n_c"),
+            adapt_rho=adapt_rho, axis=state.get("axis"))
     else:
         a = torch.where(use_w, wsolve(w * y0), y0 @ state["pinv"].T)
     a_sigma = torch.where(use_w, torch.abs(wsolve(sig0)), 0.0)
     x = (a @ state["Ur"].T) * state["X_scl"] + state["X_cnt"]
-    return x, a, a_sigma
+    return _cut(state, x), a, a_sigma
 
 
 def _predict_one(state, y_values, y_sigma, *, method, admm_iters,
@@ -233,8 +287,11 @@ class SoftSensor:
                     "method='COLS' needs constraint_A/lo/hi (scaled "
                     "coefficient-space constraint set).")
             A_c = t(constraint_A)
+            # n_c: the active constraint-row count, kept when shard()
+            # pads the rows
             self._state.update(A_c=A_c, lo=t(constraint_lo),
-                               hi=t(constraint_hi), AtA=A_c.T @ A_c)
+                               hi=t(constraint_hi), AtA=A_c.T @ A_c,
+                               n_c=int(A_c.shape[0]))
         elif method != "OLS":
             raise NotImplementedError(f"serving method {method!r}")
         self._kw = dict(method=method, admm_iters=self.admm_iters,
@@ -296,10 +353,17 @@ class SoftSensor:
                             feature_ids=feature_ids, dtype=dtype,
                             admm_iters=admm_iters, admm_rho=admm_rho)
 
-    def shard(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"SoftSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14_3}.")
+    def shard(self, mesh, axis_name: str = "state") -> "SoftSensor":
+        """Multi-card serving: a copy whose n-row state (Ur, the unscaling
+        vectors and the COLS constraint set) is row-sharded over
+        ``mesh``'s ``axis_name`` axis (see :func:`shard_state_rows`); the
+        reconstruct and the ADMM's constraint products run shard-local,
+        and a field output is this rank's rows.  A fixed-budget batch
+        still reads nothing back: its all-reduces stay on the device."""
+        new = _sharded_copy(self, mesh, axis_name)
+        new.Ur = new._state["Ur"]
+        new.X_cnt, new.X_scl = new._state["X_cnt"], new._state["X_scl"]
+        return new
 
     def predict_full(self, y_values, y_sigma=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -370,11 +434,12 @@ def _gpr_predict_math(state, P_star, mean_spec, kernel_spec,
         V_pred, _ = _boxls.box_constrained_map(
             V_pred, torch.diag_embed(variances.T), state["A_c"], state["lo"],
             state["hi"], AtA=state["AtA"], max_iter=admm_iters, tol=0.0,
-            over_relax=over_relax, adapt_rho=adapt_rho)
+            over_relax=over_relax, n_rows=state.get("n_c"),
+            adapt_rho=adapt_rho, axis=state.get("axis"))
     A = V_pred * state["Sigma_r"][None, :]
     A_sigma = V_sigma * state["Sigma_r"][None, :]
     fields = (A @ state["Ur"].T) * state["X_scl"] + state["X_cnt"]
-    return fields, A, A_sigma
+    return _cut(state, fields), A, A_sigma
 
 
 class GPRSensor:
@@ -468,7 +533,8 @@ class GPRSensor:
                     "per-request batched constraint bounds cannot be baked "
                     "into a serving model; use unbatched bounds.")
             A_c = t(cs.A)
-            state.update(A_c=A_c, lo=t(cs.lo), hi=t(cs.hi), AtA=A_c.T @ A_c)
+            state.update(A_c=A_c, lo=t(cs.lo), hi=t(cs.hi), AtA=A_c.T @ A_c,
+                         n_c=int(A_c.shape[0]))
         return cls(gpr.mean, gpr.kernel, gpr.likelihood, gpr.gpr_type,
                    state, admm_iters=admm_iters,
                    admm_over_relax=admm_over_relax, admm_rho=admm_rho)
@@ -487,10 +553,13 @@ class GPRSensor:
                             admm_over_relax=admm_over_relax,
                             admm_rho=admm_rho)
 
-    def shard(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"GPRSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14_3}.")
+    def shard(self, mesh, axis_name: str = "state") -> "GPRSensor":
+        """Multi-card serving: a copy with the n-row state (Ur, the
+        unscaling vectors and the constrained MAP's constraint set)
+        row-sharded over ``mesh`` (see :func:`shard_state_rows`); the GP
+        posterior is replicated, and a field output is this rank's
+        rows."""
+        return _sharded_copy(self, mesh, axis_name)
 
     def __call__(self, P_star):
         Ur = self._state["Ur"]
@@ -530,8 +599,8 @@ def _ck_predict_math(state, X, regr, rho_regr, rho_cols_seq, n_levels):
     means = mean * state["y_std"][:, None] + state["y_mean"][:, None]
     mses = var * state["y_std"][:, None] ** 2
     scl, cnt = state["X_scl"][:, None], state["X_cnt"][:, None]
-    return (scl * (state["Ur"] @ means) + cnt,
-            scl * (state["Ur"] @ mses) + cnt)
+    return (_cut(state, scl * (state["Ur"] @ means) + cnt, 0),
+            _cut(state, scl * (state["Ur"] @ mses) + cnt, 0))
 
 
 class CoKrigingSensor:
@@ -593,10 +662,13 @@ class CoKrigingSensor:
         from .utils.checkpoint import load_model
         return cls.from_cokriging(load_model(path, device=device))
 
-    def shard(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"CoKrigingSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14_3}.")
+    def shard(self, mesh, axis_name: str = "state") -> "CoKrigingSensor":
+        """Multi-card serving: a copy with the n-row HF state (Ur and the
+        unscaling vectors) row-sharded over ``mesh`` (see
+        :func:`shard_state_rows`): the (n, q) HF projection runs
+        shard-local, the latent posterior (tiny) is replicated, and the
+        outputs are this rank's rows."""
+        return _sharded_copy(self, mesh, axis_name)
 
     def __call__(self, X_test):
         Ur = self._state["Ur"]
@@ -628,7 +700,7 @@ def _decoder_predict_kernel(state, Y_values):
     y0 = (Y_values - state["cnt_sensors"][None, :]) \
         / state["scl_sensors"][None, :]
     X0 = _decoder_forward(state["layers"], y0)
-    return X0 * state["X_scl"][None, :] + state["X_cnt"][None, :]
+    return _cut(state, X0 * state["X_scl"][None, :] + state["X_cnt"][None, :])
 
 
 class DecoderSensor:
@@ -684,10 +756,37 @@ class DecoderSensor:
         return cls.from_decoder(load_model(path, device=device),
                                 feature_ids=feature_ids, dtype=dtype)
 
-    def shard(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"DecoderSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14_3}.")
+    def shard(self, mesh, axis_name: str = "state") -> "DecoderSensor":
+        """Multi-card serving: a copy whose n-sized state is sharded over
+        ``mesh``: the output layer's columns, its bias and the unscaling
+        vectors split across ranks, so the dominant (hidden × n) product
+        runs shard-local with no collective (the hidden activations are
+        replicated, tiny).  A non-divisible n is padded with inert columns
+        (zero weights and centre, unit scale) and the field output is this
+        rank's real columns."""
+        import copy
+        from .parallel._comm import Axis, active, check_mesh, row_range
+        check_mesh(mesh)
+        ax = Axis.of(mesh, axis_name)
+        a, b, per = row_range(self.n, ax.size, ax.rank)
+
+        def cols(x, v):                   # this rank's columns, padded
+            blk = x[..., a:b].to(ax.device)
+            if b - a < per:
+                pad = torch.full(tuple(x.shape[:-1]) + (per - (b - a),), v,
+                                 dtype=x.dtype, device=ax.device)
+                blk = torch.cat([blk, pad], dim=-1)
+            return blk
+
+        *hidden, (W_out, b_out) = self._state["layers"]
+        new = copy.copy(self)
+        new._state = dict(self._state)
+        new._state.update(
+            layers=tuple(hidden) + ((cols(W_out, 0.0), cols(b_out, 0.0)),),
+            X_cnt=cols(self._state["X_cnt"], 0.0),
+            X_scl=cols(self._state["X_scl"], 1.0),
+            n_out=b - a, axis=active(ax))
+        return new
 
     def __call__(self, y_values) -> torch.Tensor:
         """One request: sensor values (s,) → field (n,)."""
@@ -740,8 +839,8 @@ def _kf_scale_inputs(state, Y_values, Y_sigma):
 
 
 def _kf_reconstruct(state, A_coef):
-    return (A_coef @ state["Ur"].T) * state["X_scl"][None, :] \
-        + state["X_cnt"][None, :]
+    return _cut(state, (A_coef @ state["Ur"].T) * state["X_scl"][None, :]
+                + state["X_cnt"][None, :])
 
 
 def _kf_serve_series(state, Y_values, Y_sigma, a0, P0):
@@ -868,10 +967,16 @@ class DynamicSensor:
                             q_floor=q_floor, feature_ids=feature_ids,
                             dtype=dtype, r_floor=r_floor, gate=gate)
 
-    def shard(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"DynamicSensor.shard (multi-card serving) is not ported yet "
-            f"{_ITEM_14_3}.")
+    def shard(self, mesh, axis_name: str = "state") -> "DynamicSensor":
+        """Multi-card serving: a copy with the n-row state (Ur and the
+        unscaling vectors) row-sharded over ``mesh`` (see
+        :func:`shard_state_rows`): the (r, s)-sized filter is replicated,
+        only the (K, n) reconstruct splits, and a field output is this
+        rank's rows.  The copy's carry starts at the packaged prior."""
+        new = _sharded_copy(self, mesh, axis_name,
+                            row_keys=("Ur", "X_cnt", "X_scl"))
+        new.Ur = new._state["Ur"]
+        return new.reset()
 
     # ------------------------------------------------------------------ #
 

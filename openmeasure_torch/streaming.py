@@ -53,8 +53,18 @@ Two engines:
   into one (n, r) device buffer.  The reader thread waits on a buffer's
   copy event before it fills that buffer again.
 
-``mesh=`` (the sharded fit) raises: sharding over ``torch.distributed`` is
-ROADMAP.md §A item 14.3.
+The sharded fit (``fit(mesh=...)``, host engine only): every rank of the
+mesh's ``state`` axis calls it with the same source.  The axis's first
+rank runs the stats, Gram and U passes in host float64, exactly as the
+unsharded host engine does; the replicated results (V, S², r, the column
+norms, the fused flag, the block scales) are broadcast, and each (n/k, r)
+row slice of the U panel, with its rows of ``X_cnt`` and ``X_scl``, is
+broadcast from that rank the moment the stream completes it, and kept by
+its owner.  :func:`_finalize_sharded_u` then normalizes and picks the
+canonical signs on the shards.  So ``Ur``, ``Sigma_r`` and ``Ar`` equal
+the unsharded fit's bit for bit; each rank holds its rows of ``Ur``,
+``X_cnt`` and ``X_scl`` (documented deviation: the JAX package holds one
+global sharded array).
 """
 
 from __future__ import annotations
@@ -78,7 +88,7 @@ from .linalg import boxls as _boxls
 from .linalg import svd as _svd
 from .rom.rom import ROM, influence_candidate
 from .sensing.spr import SPR
-from .serving import _ITEM_14_3
+from .parallel._comm import Axis, active, argmax_cols, row_range
 
 __all__ = [
     "SnapshotStore", "NpyMatrixStore", "NpyColumnStore", "ArrayStore",
@@ -89,6 +99,7 @@ __all__ = [
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float64): torch.float64}
+_NP_DTYPES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
 # --------------------------------------------------------------------- #
@@ -684,9 +695,21 @@ def _finalize_basis(U, colnorm, S2, V, r, n, norm_dtype=None):
     return U, sr, S, V
 
 
-def _finalize_sharded_u(*args, **kwargs):
-    raise NotImplementedError(
-        f"the sharded U epilogue is not ported yet {_ITEM_14_3}.")
+def _finalize_sharded_u(U: torch.Tensor, colnorm: np.ndarray, n: int,
+                        axis, gidx: torch.Tensor):
+    """:func:`_finalize_basis`'s normalization and sign canonicalization on
+    a row-sharded raw U panel (this rank's rows ``U``, their global
+    indices ``gidx``): the division is shard-local, each column's
+    largest-|.| entry is an (r,)-sized all-gather with the unsharded tie
+    rule.  ``colnorm`` is the host float64 norms of the whole panel, so
+    the floor and the signs are the unsharded ones.  Returns the canonical
+    U and the signs (host float64)."""
+    safe = _svd.floored_norms(colnorm, n, np.float64,
+                              U.dtype).astype(_NP_DTYPES[U.dtype])
+    U = U / torch.as_tensor(safe, device=U.device)[None, :]
+    signs = torch.sign(argmax_cols(active(axis), U, gidx))
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return U * signs[None, :], to_numpy(signs).astype(np.float64)
 
 
 # --------------------------------------------------------------------- #
@@ -797,18 +820,31 @@ class StreamingROM(ROM):
         :func:`linalg.svd.default_refine` of the device) on the leading
         ``width`` subspace (default ``min(m, max(2r, r + 4))``).
         ``basis=(Ur, Ar)`` takes the basis as given after the stats pass.
-        ``mesh=`` raises (ROADMAP.md §A item 14.3)."""
+
+        ``mesh=`` (a ``DeviceMesh`` of :func:`..parallel.make_mesh`, called
+        on every rank) shards the fit over the mesh's ``mesh_axis`` axis
+        (see the module docstring): host engine only, no ``basis=``, and
+        n divisible by the axis size.  ``fit_mesh_`` records the mesh
+        (``None`` after an unsharded fit)."""
         if config is not None:
             scale_type = config.scale_type
             axis_cnt = config.axis_cnt
             select_modes = config.select_modes
             n_modes = config.n_modes
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingROM.fit(mesh=...) is not ported yet "
-                f"{_ITEM_14_3}.")
+        self.fit_mesh_ = None
         if engine not in ("host", "device"):
             raise ValueError(f"unknown streaming fit engine {engine!r}")
+        if mesh is not None:
+            Axis.of(mesh, mesh_axis)            # a DeviceMesh, or TypeError
+            if engine != "host":
+                raise ValueError(
+                    "mesh= composes with engine='host' only (the device "
+                    "engine's chunk scatter assumes one resident buffer).")
+            if basis is not None:
+                raise ValueError(
+                    "mesh= shards the streamed U pass; with basis= there is "
+                    "no U pass — shard the injected basis yourself "
+                    "(e.g. serving.shard_state_rows).")
         if engine == "host" and (refine is not None or width is not None):
             raise ValueError(
                 "refine/width are device-engine knobs; the host engine's "
@@ -822,6 +858,22 @@ class StreamingROM(ROM):
         self.bytes_uploaded_ = 0
         self.device_reads_ = 0
         n, m = self.store.shape
+        if mesh is not None:
+            ax = Axis.of(mesh, mesh_axis)
+            if n % ax.size != 0:
+                raise ValueError(
+                    f"sharded streaming fit needs the state dimension "
+                    f"(n={n}) divisible by the '{mesh_axis}' mesh axis "
+                    f"({ax.size} ranks) — pad the store upstream or pick a "
+                    "divisor mesh (same convention as "
+                    "parallel.shard_snapshots).")
+            if active(ax) is not None:
+                self._fit_sharded(scale_type, axis_cnt, select_modes,
+                                  n_modes, mesh, ax)
+                self._fit_axis_cnt = axis_cnt
+                self._invalidate_trained_state()
+                return
+            # an axis of one rank holds every row: the unsharded host fit
 
         # pass 1: stats (fused with the raw block Grams on the host engine)
         cnt_h, scl_h, stats, scl_blocks = self._stream_scaling(
@@ -847,6 +899,7 @@ class StreamingROM(ROM):
                                     stats=stats, scl_blocks=scl_blocks,
                                     axis_cnt=axis_cnt)
             self._fit_axis_cnt = axis_cnt
+            self.fit_mesh_ = mesh
             self._invalidate_trained_state()
             return
 
@@ -903,16 +956,31 @@ class StreamingROM(ROM):
 
     def _fit_host_spectral(self, cnt_h, scl_h, select_modes, n_modes,
                            stats=None, scl_blocks=None, axis_cnt=1):
-        """``engine='host'``: the float64 Gram (fused or streamed), ``eigh``
-        and the rank rule, then one disk pass building U = X0·V_r in host
-        float64 (stored in the store dtype, the norms in float64), and one
-        (n, r) upload."""
+        """``engine='host'``: :meth:`_host_passes`, then the basis
+        normalized (the norms in float64) and one (n, r) upload."""
+        n = self.store.shape[0]
+        U_h, colnorm, S2, V, r = self._host_passes(
+            cnt_h, scl_h, select_modes, n_modes, stats, scl_blocks, axis_cnt)
+        U_h, sr, S, V = _finalize_basis(U_h, colnorm, S2, V, r, n,
+                                        norm_dtype=np.float64)
+        self._set_spectral_attrs(self._upload(U_h), sr, S, V)
+
+    def _host_passes(self, cnt_h, scl_h, select_modes, n_modes, stats,
+                     scl_blocks, axis_cnt, on_rank=None, on_rows=None):
+        """The host engine's float64 work: the Gram (fused or streamed),
+        ``eigh`` and the rank rule, then one disk pass building U = X0·V_r
+        in host float64, stored in the store dtype.  Returns ``(U_h,
+        colnorm, S2, V, r)``.  ``on_rank(V, S2, r)`` runs once the rank is
+        known and ``on_rows(U_h, stop)`` after each chunk, with rows
+        [0, stop) of U_h complete: the sharded fit's broadcasts."""
         n, m = self.store.shape
         cnt64 = cnt_h.astype(np.float64)
         scl64 = scl_h.astype(np.float64)
 
         G = self._assemble_gram(stats, scl_blocks, axis_cnt, cnt64, scl64)
         V, S2, r = self._rank_from_gram(G, select_modes, n_modes)
+        if on_rank is not None:
+            on_rank(V, S2, r)
 
         Vr_ = V[:, :r]
         U_h = np.empty((n, r), dtype=self.dtype)
@@ -924,10 +992,99 @@ class StreamingROM(ROM):
             u = x0 @ Vr_
             colnorm2 += np.sum(u * u, axis=0)
             U_h[row0:row0 + c] = u.astype(self.dtype)
-        colnorm = np.sqrt(colnorm2)
-        U_h, sr, S, V = _finalize_basis(U_h, colnorm, S2, V, r, n,
-                                        norm_dtype=np.float64)
-        self._set_spectral_attrs(self._upload(U_h), sr, S, V)
+            if on_rows is not None:
+                on_rows(U_h, row0 + c)
+        return U_h, np.sqrt(colnorm2), S2, V, r
+
+    def _fit_sharded(self, scale_type, axis_cnt, select_modes, n_modes,
+                     mesh, ax):
+        """The sharded host-engine fit over the axis ``ax`` of several
+        ranks: its first rank runs :meth:`_host_passes` as the unsharded
+        host engine does, broadcasting the spectrum and then each
+        (n/k)-row slice of [U, cnt, scl] as the stream completes it; each
+        rank keeps its slice."""
+        n, m = self.store.shape
+        k, per = ax.size, n // ax.size
+        dev, tdt = ax.device, _TORCH_DTYPES[self.dtype]
+        f64 = dict(dtype=torch.float64, device=dev)
+        head = torch.zeros(3, **f64)              # r, gram_fused_, passes
+        small = torch.zeros(m * m + m + self.n_features, **f64)
+        if ax.rank == 0:
+            cnt_h, scl_h, stats, scl_blocks = self._stream_scaling(
+                scale_type, axis_cnt, want_gram=True)
+
+            def send_spectrum(V, S2, r):
+                head.copy_(torch.tensor(
+                    [r, float(self.gram_fused_), self.disk_passes_],
+                    dtype=torch.float64))
+                small.copy_(torch.as_tensor(np.concatenate(
+                    [V.reshape(-1), S2,
+                     np.asarray(scl_blocks, np.float64)])))
+                ax.broadcast(head)
+                ax.broadcast(small)
+
+            sent = []
+
+            def send_rows(U_h, stop):
+                while len(sent) < k and (len(sent) + 1) * per <= stop:
+                    a = len(sent) * per
+                    t = np.empty((per, U_h.shape[1] + 2), dtype=self.dtype)
+                    t[:, :-2] = U_h[a:a + per]
+                    t[:, -2] = cnt_h[a:a + per]
+                    t[:, -1] = scl_h[a:a + per]
+                    sent.append(ax.broadcast(torch.as_tensor(t, device=dev)))
+
+            colnorm = self._host_passes(
+                cnt_h, scl_h, select_modes, n_modes, stats, scl_blocks,
+                axis_cnt, on_rank=send_spectrum, on_rows=send_rows)[1]
+            mine = sent[0]
+            colnorm = torch.as_tensor(colnorm, **f64)
+        else:
+            ax.broadcast(head)
+            ax.broadcast(small)
+            r = int(head[0])
+            got = [ax.broadcast(torch.empty((per, r + 2), dtype=tdt,
+                                            device=dev)) for _ in range(k)]
+            mine = got[ax.rank]
+            colnorm = torch.zeros(r, **f64)
+        ax.broadcast(colnorm)
+        sr = colnorm.cpu().numpy()
+        r = int(head[0])
+        self.r = r
+        self.gram_fused_ = bool(head[1])
+        self.disk_passes_ = int(head[2]) + 1
+        small = small.cpu().numpy()
+        V = small[:m * m].reshape(m, m).copy()
+        S2 = small[m * m:m * m + m].copy()
+        scl_blocks = small[m * m + m:]
+
+        a, b, _ = row_range(n, k, ax.rank)
+        gidx = torch.arange(a, b, dtype=torch.int64, device=dev)
+        U, signs = _finalize_sharded_u(mine[:, :r].contiguous(), sr, n, ax,
+                                       gidx)
+        S = np.sqrt(S2)
+        S[:r] = sr
+        V[:, :r] *= signs[None, :]
+        self._set_spectral_attrs(U, sr, S, V)
+        # the n-row unscaling vectors ride the same row sharding, so
+        # reconstruct() stays shard-local end to end
+        self.X_cnt = mine[:, r:r + 1].contiguous()
+        self.X_scl = mine[:, r + 1:r + 2].contiguous()
+        self._cnt_vector_cache = None
+        self._cols_cache = None
+        self._scl_vector_cache = np.repeat(
+            np.asarray(scl_blocks, self.dtype), self.n_points)
+        self._shard_rows = (a, b)
+        self.fit_mesh_ = mesh
+
+    def _unsharded(self, what: str) -> None:
+        """Raise for a method that needs the whole basis after a sharded
+        fit (documented deviation: the JAX package's global arrays carry
+        them)."""
+        if getattr(self, "fit_mesh_", None) is not None:
+            raise NotImplementedError(
+                f"{what} after fit(mesh=...) needs the whole basis: refit "
+                "unsharded, or gather it with parallel.gather_rows.")
 
     def _assemble_gram(self, stats, scl_blocks, axis_cnt, cnt64, scl64):
         """Scaled, centred float64 Gram of the whole panel: the fused
@@ -1038,6 +1195,7 @@ class StreamingROM(ROM):
         ``UrᵀX0[:, i]``, which equals ``Ar[i]`` for the orthonormal
         streamed basis, so the batched ADMM runs from the reduced
         coordinates alone."""
+        self._unsharded('CPOD')
         if solver_fn is not None:
             raise NotImplementedError(
                 "solver_fn CPOD needs the in-core X0; use ROM.CPOD.")
@@ -1096,6 +1254,7 @@ class StreamingROM(ROM):
         (:meth:`ROM.update_basis` semantics); the original snapshots are
         never read again.  The fitted full-width spectrum no longer
         describes the enlarged set and is dropped."""
+        self._unsharded('update_basis')
         if not hasattr(self, "Ur"):
             raise AttributeError(
                 "The fit function has to be called before update_basis.")

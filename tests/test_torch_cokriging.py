@@ -131,8 +131,13 @@ def test_sensor_matches_cokriging_predict(pair, prob):
         sensor(np.zeros((2, 2)))
     with pytest.raises(FileNotFoundError):
         CoKrigingSensor.load("model.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sensor.shard(None)
+    from openmeasure_torch.parallel.harness import local_world
+    with local_world("cpu") as mesh:
+        got = sensor.shard(mesh)(prob["Xt"])
+    for a, b in zip(got, sensor(prob["Xt"])):
+        assert torch.equal(a, b)
 
 
 def test_sensor_casts_to_the_basis_dtype(prob):

@@ -186,8 +186,14 @@ def test_validation_errors_match_jax(trained):
         DecoderSensor.from_decoder(td).predict_batch(np.zeros((2, 3)))
     with pytest.raises(FileNotFoundError):
         DecoderSensor.load("x.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DecoderSensor.from_decoder(td).shard(None)
+    dsen = DecoderSensor.from_decoder(td)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        dsen.shard(None)
+    from openmeasure_torch.parallel.harness import local_world
+    Yd = np.zeros((2, dsen.s), np.float32)
+    with local_world("cpu") as mesh:
+        assert torch.equal(dsen.shard(mesh).predict_batch(Yd),
+                           dsen.predict_batch(Yd))
     with pytest.raises(ValueError, match="layer widths"):
         ShallowDecoder(flame["X_train"], NF, flame["xyz"], hidden=(4,),
                        device="cpu").fit(C, epochs=2,

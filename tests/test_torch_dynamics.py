@@ -403,6 +403,11 @@ def test_dynamic_sensor_validation_matches_jax(served):
         DynamicSensor.from_spr(untrained)
     with pytest.raises(FileNotFoundError):
         DynamicSensor.load("x.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsen.shard(None)
+    from openmeasure_torch.parallel.harness import local_world
+    with local_world("cpu") as mesh:
+        got = tsen.shard(mesh).filter_batch(Y)
+    for a, b in zip(got, tsen.filter_batch(Y)):
+        assert torch.equal(a, b)
     assert DynamicSensor.from_spr(ts).filter_batch(Y)[0].dtype == torch.float32

@@ -42,6 +42,8 @@ def test_import_without_jax_in_a_fresh_process():
         "import openmeasure_torch.linalg.incremental\n"
         "import openmeasure_torch.streaming, openmeasure_torch.utils.checkpoint\n"
         "from openmeasure_torch import StreamingSPR, StreamingDMD\n"
+        "import openmeasure_torch.parallel.sharded\n"
+        "import openmeasure_torch.parallel.harness\n"
         "from openmeasure_torch.ctc import (camera, grid, projection, raytrace,\n"
         "                                  resample, unstructured)\n"
         "bad = [m for m in sys.modules if m == 'openmeasure_tpu'\n"
@@ -78,6 +80,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         gpr_end_to_end(X, P, P[:2], X[:, :2], n_features=2, r=3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPR(X, 2, np.zeros((20, 3)), P)
+    # the sharded entry points: make_mesh() means the card (NCCL)
+    from openmeasure_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(1)
     from openmeasure_torch import SoftSensor
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SoftSensor(X[:, :3], X[:3, :3], np.zeros(3), np.ones(3),

@@ -175,19 +175,32 @@ def test_spr_from_numpy_matches_jax(flame, fitted_pair):
 
 
 def test_unported_methods_raise_with_roadmap_item():
-    """What still raises is the sharding of item 14.3: the serving row
-    sharding, a sensor's shard and the streaming fit's mesh branch."""
+    """Sharding is ported: the serving row sharding, a sensor's shard and
+    the streaming fit's mesh branch reject an argument that is not a
+    ``DeviceMesh`` with a clear error, and on a world of one in this
+    process they give the unsharded results."""
     from openmeasure_torch import DecoderSensor, DynamicSensor, SoftSensor
+    from openmeasure_torch.parallel.harness import local_world
     from openmeasure_torch.serving import shard_state_rows
-    from openmeasure_torch.streaming import StreamingROM
-    with pytest.raises(NotImplementedError, match="item 14.3"):
+    from openmeasure_torch.streaming import StreamingROM, StreamingSPR
+    with pytest.raises(TypeError, match="DeviceMesh"):
         shard_state_rows({}, None)
     for cls in (SoftSensor, DecoderSensor, DynamicSensor):
-        with pytest.raises(NotImplementedError, match="item 14.3"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             cls.shard(None, None)
     X = np.random.default_rng(0).standard_normal((40, 6)) + 5.0
-    with pytest.raises(NotImplementedError, match="item 14.3"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         StreamingROM(X, 2, device="cpu").fit(mesh=object())
+    fits = []
+    with local_world("cpu") as mesh:
+        for m_ in (None, mesh):
+            s = StreamingSPR(X, 2, dtype=np.float64, device="cpu")
+            s.fit(select_modes="number", n_modes=3, mesh=m_)
+            s.train(s.optimal_placement())
+            fits.append(s)
+    assert fits[1].fit_mesh_ is not None and fits[0].fit_mesh_ is None
+    for k in ("Ur", "Sigma_r", "Ar", "Theta", "X_cnt", "X_scl"):
+        assert torch.equal(getattr(fits[1], k), getattr(fits[0], k)), k
 
 
 def test_class_flow_operator_forms_match_jax(flame):

@@ -265,8 +265,15 @@ def test_load_and_shard_name_item_14():
     st = SoftSensor.from_spr(ts)
     for call in (lambda: st.shard(None),
                  lambda: TS.shard_state_rows({}, None)):
-        with pytest.raises(NotImplementedError, match="item 14.3"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
+    # a world of one in this process serves the unsharded results
+    from openmeasure_torch.parallel.harness import local_world
+    Y = np.random.default_rng(1).standard_normal((3, st.s))
+    with local_world("cpu") as mesh:
+        got = st.shard(mesh).predict_batch(Y)
+    for a, b in zip(got, st.predict_batch(Y)):
+        assert torch.equal(a, b)
     # the checkpoints are ported: load reads the file it is given
     for cls in (SoftSensor, GPRSensor):
         with pytest.raises(FileNotFoundError):
