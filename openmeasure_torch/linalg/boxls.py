@@ -157,6 +157,51 @@ def build_constraint_set(constraints=None, box=None):
     return cs, n_user == 0
 
 
+def shard_constraint_set(constraints, box, axis, n_box: int,
+                         dtype: torch.dtype, device):
+    """The constraint set of a solve whose rows are sharded over ``axis``
+    (an axis of several ranks), as ``(A, lo, hi, AᵀA, n_rows)`` in
+    ``dtype`` on ``device`` for :func:`admm_box_qp`'s ``axis=``.
+
+    ``box`` is ``(A, lo, hi)`` with this rank's rows of the box part (the
+    basis rows and their scaled limits), or ``None``; ``n_box`` the box
+    part's global row count.  ``constraints`` (as in
+    :func:`build_constraint_set`) has global rows, the same on every rank:
+    this rank takes its block of them (:func:`..parallel._comm.row_range`)
+    and pads it with inert rows (zero operator rows, [0, 0] bounds) to the
+    common block size, as ``serving.shard_state_rows`` pads the state, and
+    stacks it under its box rows.  ``AᵀA`` is all-reduced and ``n_rows``
+    counts each real constraint row once (box rows plus user rows), so
+    the residual norms and the stop test are the unsharded solve's.
+    Returns ``None`` when neither part is given."""
+    user, _ = build_constraint_set(constraints)
+    parts, n_rows = [], 0
+    if box is not None:
+        parts.append(LinearConstraints(*box))
+        n_rows += int(n_box)
+    if user is not None:
+        A, lo, hi = (as_tensor(x, device, dtype=dtype) for x in user)
+        A = torch.atleast_2d(A)
+        n_c, r = A.shape
+        a, b, per = _comm.row_range(n_c, axis.size, axis.rank)
+        pad = per - (b - a)
+
+        def rows(x):                   # (n_c,) or (batch, n_c) bounds
+            x = torch.atleast_1d(x)
+            x = torch.broadcast_to(x, x.shape[:-1] + (n_c,))
+            return torch.cat([x[..., a:b], x.new_zeros(x.shape[:-1]
+                                                       + (pad,))], dim=-1)
+        parts.append(LinearConstraints(
+            torch.cat([A[a:b], A.new_zeros((pad, r))], dim=0), rows(lo),
+            rows(hi)))
+        n_rows += n_c
+    if not parts:
+        return None
+    cs = parts[0] if len(parts) == 1 else concat_constraints(parts)
+    A, lo, hi = (as_tensor(x, device, dtype=dtype) for x in cs)
+    return A, lo, hi, axis.sum(A.T @ A), n_rows
+
+
 def _trace(M: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
 

@@ -140,7 +140,7 @@ def svd_append_columns_eager(
 
 def svd_append_columns_cholqr(
     U: torch.Tensor, S: torch.Tensor, Vt: torch.Tensor, Xn: torch.Tensor,
-    reorth: bool = True, mesh=None,
+    reorth: bool = True, mesh=None, mesh_axis: str = "state",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`svd_append_columns` with the residual orthogonalized through
     its (q, q) Gram (the CholQR class), the form for row-sharded bases: only
@@ -158,11 +158,11 @@ def svd_append_columns_cholqr(
     orthonormality degrades in near-null directions, which truncation
     discards.
 
-    With ``mesh`` the rows of U and Xn are sharded over its ``state``
+    With ``mesh`` the rows of U and Xn are sharded over its ``mesh_axis``
     axis (each rank passes its rows): the (r, q) projections and the
     (q, q) Gram are all-reduced, the core and its SVD are replicated, and
     each rank gets its rows of U'."""
-    axis = active(axis_of(mesh))
+    axis = active(axis_of(mesh, mesh_axis))
     r = S.shape[0]
     q = Xn.shape[1]
     n = U.shape[0]

@@ -72,12 +72,49 @@ def _regr(kind: str, X: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown regression type {kind!r}")
 
 
+def _fixed_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim by pairwise halving with elementwise adds, so
+    the order of each output's sum is set by that dim's length alone.  A
+    torch reduction on the card splits an output's sum over as many
+    threads as the count of outputs leaves free, so its rounding depends on
+    how many lanes share the batch."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        y = x[..., :h] + x[..., h:2 * h]
+        x = y if x.shape[-1] % 2 == 0 else torch.cat([y, x[..., 2 * h:]],
+                                                     dim=-1)
+    return x[..., 0]
+
+
+class _ThetaContraction(torch.autograd.Function):
+    """``Σ_k θ_k d_k²`` for θ (..., dim) and the coordinate differences d
+    (n1, n2, dim).  The backward, ``gθ_k = Σ_ij G_ij d_ijk²``, sums each
+    lane's n1·n2 terms in :func:`_fixed_order_sum`'s order: autograd's own
+    sum over the broadcast axes gave a lane's θ gradient, and with it the
+    fp32 θ search of a co-kriging split over the ``mode`` axis, other
+    rounding for another lane count on the card
+    (``profile_torch.py lanes``).  The backward is differentiable torch
+    ops, so the Hessian's second pass re-enters the same order."""
+
+    @staticmethod
+    def forward(ctx, theta, d):
+        ctx.save_for_backward(d)
+        return torch.sum(theta[..., None, None, :] * d * d, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        n1, n2, dim = d.shape
+        terms = (g[..., None] * d * d).reshape(g.shape[:-2] + (n1 * n2, dim))
+        return _fixed_order_sum(torch.movedim(terms, -1, -2)), None
+
+
 def _corr(theta: torch.Tensor, X1: torch.Tensor, X2: torch.Tensor
           ) -> torch.Tensor:
     """Squared-exponential correlation exp(−Σ θ_k d_k²): ``theta`` (..., d),
     X1 (n1, d), X2 (n2, d) → (..., n1, n2)."""
     d = X1[:, None, :] - X2[None, :, :]
-    return torch.exp(-torch.sum(theta[..., None, None, :] * d * d, dim=-1))
+    return torch.exp(-_ThetaContraction.apply(theta, d))
 
 
 def _nugget_for(dtype) -> float:
@@ -85,9 +122,30 @@ def _nugget_for(dtype) -> float:
     return 1e-10 if dtype == torch.float64 else 1e-5
 
 
+# _pow10 pads its operand to a multiple of this many elements
+_POW_BLOCK = 64
+
+
+def _pow10(log10_theta: torch.Tensor) -> torch.Tensor:
+    """``10 ** log10_theta`` in its dtype, computed in float64 on a flat
+    copy padded to a multiple of :data:`_POW_BLOCK` elements and rounded
+    once.  ``torch.pow`` on the CPU rounds differently in its vector body
+    and in its scalar path (a tensor too short for a vector, and the tail
+    of a longer one), in fp32 and float64 alike, so a lane's θ, and with it
+    the whole search, depended on how many lanes shared the batch: a
+    co-kriging split over the ``mode`` axis moved the θ search
+    (``tests/test_torch_sharded_update.py``,
+    ``tests/test_torch_parallel.py``).  With the padding every element
+    takes the vector body."""
+    flat = log10_theta.double().reshape(-1)
+    pad = flat.new_zeros((-flat.numel()) % _POW_BLOCK)
+    theta = (10.0 ** torch.cat([flat, pad]))[:flat.numel()]
+    return theta.reshape(log10_theta.shape).to(log10_theta.dtype)
+
+
 def _corr_matrix(log10_theta: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     n = X.shape[0]
-    theta = 10.0 ** log10_theta
+    theta = _pow10(log10_theta)
     eye = torch.eye(n, dtype=X.dtype, device=X.device)
     return _corr(theta, X, X) + _nugget_for(X.dtype) * eye
 
@@ -475,7 +533,7 @@ class MultiFiCoKriging:
         starts = torch.as_tensor(
             _make_starts(theta0, thetaL, thetaU, initial_range), **like)
         best = _multistart_opt(starts, X, F, y, lo, hi, float(tol))
-        return 10.0 ** best
+        return _pow10(best)
 
     # ------------------------------------------------------------------ #
 
@@ -681,8 +739,8 @@ class BatchedMFK:
             if theta_fixed is not None:
                 thetas = as_tensor(theta_fixed, dev, dtype=dtype).expand(K, d)
             else:
-                thetas = 10.0 ** _multistart_opt_batch(
-                    starts, Xl, F_batch, Yl, lo, hi, float(tol))[0]
+                thetas = _pow10(_multistart_opt_batch(
+                    starts, Xl, F_batch, Yl, lo, hi, float(tol))[0])
 
             beta, gamma, sigma2, L, Ggls = _level_fit_terms(thetas, Xl,
                                                             F_batch, Yl)

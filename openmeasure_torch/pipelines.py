@@ -251,7 +251,7 @@ def mfk_end_to_end(
     def fit_level(Xl, F_batch, Yl):
         log_t, steps = _M._multistart_opt_batch(starts, Xl, F_batch, Yl, lo,
                                                 hi, 1e-6)
-        thetas = 10.0 ** log_t
+        thetas = _M._pow10(log_t)
         beta, gamma, sigma2, L, Ggls = _M._level_fit_terms(thetas, Xl,
                                                            F_batch, Yl)
         return dict(X=Xl, Y=Yl, F=F_batch, theta=thetas, beta=beta,

@@ -34,6 +34,7 @@ from ..core import scaling as _scaling
 from ..core.device import DeviceLike, as_tensor, resolve_device, to_numpy
 from ..linalg import boxls as _boxls
 from ..linalg import svd as _svd
+from ..parallel._comm import active, axis_of
 
 
 def is_torch_sparse(x) -> bool:
@@ -216,6 +217,36 @@ class ROM:
             as_feature_vec(limits[1], "max"),
             self.X_cnt, self.X_scl, self.n_features)
         return [lo, hi]
+
+    def _shard_axis(self):
+        """This rank's view of the basis: ``(mesh, axis of several ranks or
+        None, global indices of its rows, (first, stop))``; an unsharded
+        fit is ``(None, None, None, (0, n))``, and a fit on a mesh whose
+        axis has one rank keeps the mesh and holds every row."""
+        mesh = getattr(self, "fit_mesh_", None)
+        if mesh is None:
+            return None, None, None, (0, self.Ur.shape[0])
+        a, b = getattr(self, "_shard_rows", (0, self.Ur.shape[0]))
+        axis = active(axis_of(mesh, self._mesh_axis))
+        gidx = torch.arange(a, b, dtype=torch.int64, device=self.device)
+        return mesh, axis, gidx, (a, b)
+
+    _mesh_axis = "state"       # the mesh axis a sharded fit splits rows over
+
+    def _scale_limit_rows(self, limits: Sequence, dtype: torch.dtype):
+        """:meth:`scale_limits` for this rank's rows of a fit sharded over
+        several ranks, in ``dtype``: the per-feature ±1000 test reduces
+        its block extrema over the ranks."""
+        from ..parallel.sharded import _scale_limits_rows
+        _, axis, gidx, _ = self._shard_axis()
+
+        def as_feature_vec(b):
+            return np.broadcast_to(np.asarray(b, np.float64),
+                                   (self.n_features,))
+        return _scale_limits_rows(
+            as_feature_vec(limits[0]), as_feature_vec(limits[1]),
+            self.X_cnt[:, 0].to(dtype), self.X_scl[:, 0].to(dtype),
+            gidx // self.n_points, self.n_features, axis)
 
     def unscale_data(self, x0, sampling=None):
         x0 = self._t(x0)
@@ -424,10 +455,23 @@ class ROM:
 
     def _update_basis_core(self, X0n, select_modes, n_modes, reorth):
         """Brand update of (Ur, Sigma_r, Vr) with the scaled columns X0n,
-        rank selection, attribute writes."""
+        rank selection, attribute writes.  On a fit sharded over several
+        ranks (``fit(mesh=...)`` of the streaming classes) ``Ur`` and X0n
+        are this rank's rows and the update is the CholQR form
+        (:func:`..linalg.incremental.svd_append_columns_cholqr`), whose
+        (r, q) projections and (q, q) Gram are all-reduced and whose core
+        is replicated, so the rank rule below takes the same branch on
+        every rank; otherwise the Householder form with the float64 host
+        core (:func:`..linalg.incremental.svd_append_columns_eager`)."""
         from ..linalg import incremental as _inc
-        U2, S2, Vt2 = _inc.svd_append_columns_eager(
-            self.Ur, self.Sigma_r, self.Vr.T, X0n, reorth=reorth)
+        mesh, axis, _, _ = self._shard_axis()
+        if axis is None:
+            U2, S2, Vt2 = _inc.svd_append_columns_eager(
+                self.Ur, self.Sigma_r, self.Vr.T, X0n, reorth=reorth)
+        else:
+            U2, S2, Vt2 = _inc.svd_append_columns_cholqr(
+                self.Ur, self.Sigma_r, self.Vr.T, X0n, reorth=reorth,
+                mesh=mesh, mesh_axis=self._mesh_axis)
         if n_modes is None:
             r_new = min(self.r, S2.shape[0])
         else:

@@ -27,9 +27,10 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.device import as_tensor, to_numpy_once
-from ..parallel._comm import active, axis_of, local_gidx, pick
+from ..parallel._comm import active, axis_of, local_gidx, pick, take_rows
 
 
 def _nanvar_max(Ur: torch.Tensor, mask: torch.Tensor,
@@ -118,15 +119,12 @@ def gem_select(Ur, xyz_tiled, n_sensors: int, mask=None, d_min: float = 0.0,
     With ``mesh`` Ur's rows are sharded over its ``state`` axis: ``Ur``,
     ``xyz_tiled`` and ``mask`` are this rank's rows and ``gidx`` their
     global indices (default: the ranks' blocks in rank order); the indices
-    returned are global, the same on every rank.  The verbose table needs
-    every row's σ²_y and is not offered then."""
+    returned are global, the same on every rank.  The verbose table takes
+    σ²_y of the selected rows from their owners (one all-gather) in the
+    same single read, and the world's rank 0 prints it."""
     axis = active(axis_of(mesh))
-    if axis is not None:
-        if verbose:
-            raise ValueError("verbose=True prints every row's sigma^2_y; "
-                             "run it on the unsharded basis.")
-        if gidx is None:
-            gidx = local_gidx(axis, Ur.shape[0], Ur.device)
+    if axis is not None and gidx is None:
+        gidx = local_gidx(axis, Ur.shape[0], Ur.device)
     n = Ur.shape[0]
     dev, dtype = Ur.device, Ur.dtype
     mask_np = (np.ones((n,), dtype=bool) if mask is None
@@ -135,7 +133,11 @@ def gem_select(Ur, xyz_tiled, n_sensors: int, mask=None, d_min: float = 0.0,
     d = torch.tensor(float(d_min), dtype=dtype, device=dev)
     selected, step_scores, step_H, sigma_coef = _gem_select(
         Ur, xyz, as_tensor(mask_np, dev), d, n_sensors, axis, gidx)
-    # one read: the verbose table needs σ²_y of every row as well
+    # one read: the verbose table needs σ²_y of the selected rows as well
+    # (every row's on one rank, the selected rows' from their owners on
+    # several)
+    if verbose and axis is not None:
+        sigma_coef = take_rows(axis, sigma_coef, gidx, selected)
     wanted = (selected, step_scores, step_H) + ((sigma_coef,) if verbose
                                                  else ())
     got = to_numpy_once(*wanted)
@@ -148,16 +150,18 @@ def gem_select(Ur, xyz_tiled, n_sensors: int, mask=None, d_min: float = 0.0,
             f"the d_min={float(d_min)} exclusion (and/or the region mask) "
             "eliminated every remaining location. Reduce d_min, enlarge the "
             "mask, or request fewer sensors.")
-    if verbose:
-        Hs, sc = got[2], got[3]
+    if verbose and (axis is None or dist.get_rank() == 0):
+        Hs = got[2]
+        # σ²_y of the s-th selected row
+        sc = got[3][selected] if axis is None else got[3]
         header = ["# sensors", "sigma^2 y", "sigma^2 y|a", "Htot"]
         print(f"{'-'*70} \n {header[0]:^10} {header[1]:^10} "
               f"{header[2]:^10} {header[3]:^10} \n ")
         for s_i in range(n_sensors):
             if s_i == 0:
-                print(f"{s_i+1:^10} {sc[selected[s_i]]:^10.2e} "
+                print(f"{s_i+1:^10} {sc[s_i]:^10.2e} "
                       f"{'  -':^10} {'  -':^10}")
             else:
-                print(f"{s_i+1:^10} {sc[selected[s_i]]:^10.2e} "
+                print(f"{s_i+1:^10} {sc[s_i]:^10.2e} "
                       f"{scores[s_i]:^10.2e} {Hs[s_i]:^10.2e}")
     return selected

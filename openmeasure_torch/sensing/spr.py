@@ -41,7 +41,7 @@ from ..core.device import as_tensor, to_numpy
 from ..linalg import boxls as _boxls
 from ..linalg import qrcp as _qrcp
 from ..linalg.qrcp_cuda import qrcp_pivots_sharded
-from ..parallel._comm import active, axis_of, gather_rows
+from ..parallel._comm import gather_rows
 from ..rom.rom import (ROM, apply_sampling, is_torch_sparse,
                        scale_measurement_values, torch_sparse_to_scipy)
 from .dg import dg_select
@@ -169,18 +169,6 @@ class SPR(ROM):
         raise NotImplementedError(
             "The sensor selection method has not been implemented yet")
 
-    def _shard_axis(self):
-        """This rank's view of the basis: ``(mesh, axis of several ranks or
-        None, global indices of its rows, (first, stop))``; an unsharded
-        fit is ``(None, None, None, (0, n))``."""
-        mesh = getattr(self, "fit_mesh_", None)
-        if mesh is None:
-            return None, None, None, (0, self.Ur.shape[0])
-        a, b = getattr(self, "_shard_rows", (0, self.Ur.shape[0]))
-        axis = active(axis_of(mesh))
-        gidx = torch.arange(a, b, dtype=torch.int64, device=self.device)
-        return mesh, axis, gidx, (a, b)
-
     def _sample(self, C, M: torch.Tensor) -> torch.Tensor:
         """``C @ M`` for a global operator C (s, n) and M with the basis's
         rows: on a sharded fit, this rank's columns of C times its rows of
@@ -278,7 +266,9 @@ class SPR(ROM):
         if getattr(self, "Theta", None) is not None:
             self._cols_cache = None      # its box part was built on old Ur
             if getattr(self, "C", None) is not None:
-                self.Theta = apply_sampling(self.C, self.Ur)
+                # on a sharded fit, this rank's columns of C times its
+                # rows of Ur, all-reduced
+                self.Theta = self._sample(self.C, self.Ur)
             else:
                 del self.Theta           # is_Theta path: must re-train
                 self._needs_retrain = True
@@ -354,14 +344,13 @@ class SPR(ROM):
             raise NotImplementedError(
                 "The prediction method selected has not been implemented yet")
         A_c, lo, hi, AtA = self._cols_set()
-        sharded = getattr(self, "fit_mesh_", None) is not None
-        axis = self._shard_axis()[1]
         Ar, self.admm_info = _boxls.box_constrained_lstsq(
             self.Theta, as_tensor(y0_np[:, :, 0], self.device, dtype=dtype),
             as_tensor(w_np, self.device, dtype=dtype), A_c, lo, hi, AtA=AtA,
             max_iter=self.admm_max_iter, tol=self.admm_tol,
             over_relax=self.admm_over_relax,
-            n_rows=self.X.shape[0] if sharded else None, axis=axis)
+            n_rows=getattr(self, "_cols_rows", None),
+            axis=self._shard_axis()[1])
         return Ar, Ar_sigma
 
     def _cols_set(self):
@@ -369,10 +358,12 @@ class SPR(ROM):
         Theta's dtype on the model's device, built once per train: the
         limits, the constraints and Ur are train-time constants, and the
         O(n r²) Gram is exact (``UrᵀUr`` is not I after a masked
-        placement)."""
+        placement).  ``_cols_rows`` holds the global constraint-row count
+        of a set sharded over several ranks, else ``None``."""
         if getattr(self, "_cols_cache", None) is None \
-                and getattr(self, "fit_mesh_", None) is not None:
-            self._cols_cache = self._sharded_cols_set()
+                and self._shard_axis()[1] is not None:
+            A_c, lo, hi, AtA, self._cols_rows = self._sharded_cols_set()
+            self._cols_cache = (A_c, lo, hi, AtA)
         if getattr(self, "_cols_cache", None) is None:
             box = None
             if self.limits is not None:
@@ -387,33 +378,26 @@ class SPR(ROM):
             A_c, lo, hi = (as_tensor(x, self.device, dtype=self.Theta.dtype)
                            for x in cs)
             self._cols_cache = (A_c, lo, hi, A_c.T @ A_c)
+            self._cols_rows = None
         return self._cols_cache
 
     def _sharded_cols_set(self):
-        """The COLS box on a sharded fit: this rank's rows of Ur and of the
-        scaled limits (the per-feature ±1000 test reduced over the ranks),
-        the all-reduced UᵀU.  A general ``constraints`` set has global
-        rows and is not taken here."""
-        if getattr(self, "constraints", None) is not None:
-            raise NotImplementedError(
-                "a general constraints set on a sharded fit: shard its rows "
-                "and call linalg.boxls with axis=, or use limits only.")
-        if self.limits is None:
-            raise ValueError(
-                "method='COLS' requires physical `limits` passed to "
-                "train(C, ...).")
-        from ..parallel.sharded import _scale_limits_rows
-        _, axis, gidx, _ = self._shard_axis()
+        """The COLS set on a fit sharded over several ranks: this rank's
+        rows of Ur and of the scaled limits (the per-feature ±1000 test
+        reduced over the ranks) stacked over its share of the global
+        ``constraints`` rows (:func:`..linalg.boxls.shard_constraint_set`),
+        the all-reduced AᵀA and the global row count."""
+        _, axis, _, _ = self._shard_axis()
         dt = self.Theta.dtype
-        cnt = self.X_cnt[:, 0].to(dt)
-        scl = self.X_scl[:, 0].to(dt)
-        if axis is None:
-            lo, hi = self.scale_limits(self.limits)
-            lo, hi = (as_tensor(x, self.device, dtype=dt) for x in (lo, hi))
-            return self.Ur.to(dt), lo, hi, self.Ur.T.to(dt) @ self.Ur.to(dt)
-        lo, hi = _scale_limits_rows(
-            np.asarray(self.limits[0], np.float64),
-            np.asarray(self.limits[1], np.float64), cnt, scl,
-            gidx // self.n_points, self.n_features, axis)
-        A_c = self.Ur.to(dt)
-        return A_c, lo, hi, axis.sum(A_c.T @ A_c)
+        box = None
+        if self.limits is not None:
+            box = (self.Ur.to(dt),) + tuple(
+                self._scale_limit_rows(self.limits, dt))
+        out = _boxls.shard_constraint_set(
+            getattr(self, "constraints", None), box, axis,
+            self.X.shape[0], dt, self.device)
+        if out is None:
+            raise ValueError(
+                "method='COLS' requires physical `limits` (or a "
+                "`constraints` set) passed to train(C, ...).")
+        return out

@@ -64,7 +64,11 @@ its owner.  :func:`_finalize_sharded_u` then normalizes and picks the
 canonical signs on the shards.  So ``Ur``, ``Sigma_r`` and ``Ar`` equal
 the unsharded fit's bit for bit; each rank holds its rows of ``Ur``,
 ``X_cnt`` and ``X_scl`` (documented deviation: the JAX package holds one
-global sharded array).
+global sharded array).  The post-fit methods run on the shards:
+``update_basis`` reads each rank's rows of the new snapshots and updates
+by the CholQR form, ``CPOD`` and the COLS ``predict`` split their box and
+``constraints`` rows over the ranks, the placements take a cross-rank
+argmax.
 """
 
 from __future__ import annotations
@@ -273,18 +277,22 @@ class _PinnedRing:
 
 def iter_chunks(store: SnapshotStore, chunk_rows: Optional[int] = None,
                 dtype=np.float32, prefetch: int = 2,
-                ring: Optional[_PinnedRing] = None):
-    """Yield ``(row0, chunk)`` covering all rows, with a background reader
-    thread keeping up to ``prefetch`` chunks ahead (``prefetch=0`` reads
-    in the caller's thread).  The native loader releases the GIL, so the
-    next chunk's disk read may run beside the caller's compute on the
-    current one.  With ``ring`` each chunk is read into a pinned buffer of it (the
-    device engine's uploads).  Closing the generator early stops the
-    reader promptly; an error in the reader surfaces in the consumer."""
+                ring: Optional[_PinnedRing] = None,
+                rows: Optional[Tuple[int, int]] = None):
+    """Yield ``(row0, chunk)`` covering all rows, or the rows ``[a, b)``
+    of ``rows=(a, b)`` (a rank's block of a sharded model), with a
+    background reader thread keeping up to ``prefetch`` chunks ahead
+    (``prefetch=0`` reads in the caller's thread).  The native loader
+    releases the GIL, so the next chunk's disk read may run beside the
+    caller's compute on the current one.  With ``ring`` each chunk is read
+    into a pinned buffer of it (the device engine's uploads).  Closing the
+    generator early stops the reader promptly; an error in the reader
+    surfaces in the consumer."""
     n, m = store.shape
+    first, n = (0, n) if rows is None else rows
     if chunk_rows is None:
         chunk_rows = default_chunk_rows(m, dtype)
-    chunk_rows = min(chunk_rows, n)
+    chunk_rows = max(1, min(chunk_rows, n - first))
 
     def read(row0):
         c = min(chunk_rows, n - row0)
@@ -292,7 +300,7 @@ def iter_chunks(store: SnapshotStore, chunk_rows: Optional[int] = None,
         return store.read_rows(row0, c, dtype, out)
 
     if prefetch < 1:                      # synchronous
-        for row0 in range(0, n, chunk_rows):
+        for row0 in range(first, n, chunk_rows):
             yield row0, read(row0)
         return
 
@@ -302,7 +310,7 @@ def iter_chunks(store: SnapshotStore, chunk_rows: Optional[int] = None,
 
     def reader():
         try:
-            for row0 in range(0, n, chunk_rows):
+            for row0 in range(first, n, chunk_rows):
                 if stop.is_set():
                     return
                 chunk = read(row0)
@@ -832,6 +840,8 @@ class StreamingROM(ROM):
             select_modes = config.select_modes
             n_modes = config.n_modes
         self.fit_mesh_ = None
+        self._mesh_axis = mesh_axis
+        self._shard_rows = (0, self.store.shape[0])
         if engine not in ("host", "device"):
             raise ValueError(f"unknown streaming fit engine {engine!r}")
         if mesh is not None:
@@ -1077,15 +1087,6 @@ class StreamingROM(ROM):
         self._shard_rows = (a, b)
         self.fit_mesh_ = mesh
 
-    def _unsharded(self, what: str) -> None:
-        """Raise for a method that needs the whole basis after a sharded
-        fit (documented deviation: the JAX package's global arrays carry
-        them)."""
-        if getattr(self, "fit_mesh_", None) is not None:
-            raise NotImplementedError(
-                f"{what} after fit(mesh=...) needs the whole basis: refit "
-                "unsharded, or gather it with parallel.gather_rows.")
-
     def _assemble_gram(self, stats, scl_blocks, axis_cnt, cnt64, scl64):
         """Scaled, centred float64 Gram of the whole panel: the fused
         algebra when the stats pass carried it and it lost at most
@@ -1194,8 +1195,14 @@ class StreamingROM(ROM):
         """Constrained POD without ``X0``: the box-QP's linear term is
         ``UrᵀX0[:, i]``, which equals ``Ar[i]`` for the orthonormal
         streamed basis, so the batched ADMM runs from the reduced
-        coordinates alone."""
-        self._unsharded('CPOD')
+        coordinates alone.
+
+        After a fit sharded over several ranks, ``UrᵀUr`` is one
+        all-reduce, the box rows are this rank's (``limits`` scaled by its
+        rows of the statistics), a ``constraints`` set's global rows are
+        split over the ranks (:func:`..linalg.boxls.shard_constraint_set`)
+        and the ADMM runs with ``axis=`` and the global row count;
+        ``Ar``, ``Vr`` and ``admm_info`` come out replicated."""
         if solver_fn is not None:
             raise NotImplementedError(
                 "solver_fn CPOD needs the in-core X0; use ROM.CPOD.")
@@ -1205,24 +1212,36 @@ class StreamingROM(ROM):
             over_relax = solver_config.over_relax
         Ur = self.Ur
         H = Ur.T @ Ur
-        box = None
-        if limits is not None:
-            lo_b, hi_b = self.scale_limits(limits)
-            box = (Ur, lo_b, hi_b)
-        cs, box_only = _boxls.build_constraint_set(constraints, box)
+        axis = self._shard_axis()[1]
+        if axis is not None:
+            H = axis.sum(H)
+            box = None if limits is None else (Ur,) + tuple(
+                self._scale_limit_rows(limits, Ur.dtype))
+            cs = _boxls.shard_constraint_set(constraints, box, axis,
+                                             self.store.shape[0], Ur.dtype,
+                                             self.device)
+        else:
+            box = None
+            if limits is not None:
+                lo_b, hi_b = self.scale_limits(limits)
+                box = (Ur, lo_b, hi_b)
+            cs, box_only = _boxls.build_constraint_set(constraints, box)
+            if cs is not None:
+                lo, hi = (as_tensor(x, self.device, dtype=Ur.dtype)
+                          for x in (cs.lo, cs.hi))
+                if box_only:
+                    A_c, AtA = Ur, H
+                else:
+                    A_c = as_tensor(cs.A, self.device, dtype=Ur.dtype)
+                    AtA = A_c.T @ A_c
+                cs = (A_c, lo, hi, AtA, None)
         if cs is None:
             raise ValueError(
                 "CPOD requires `limits`, `constraints`, or a solver_fn.")
-        lo, hi = (as_tensor(x, self.device, dtype=Ur.dtype)
-                  for x in (cs.lo, cs.hi))
-        if box_only:
-            A_c, AtA = Ur, H
-        else:
-            A_c = as_tensor(cs.A, self.device, dtype=Ur.dtype)
-            AtA = A_c.T @ A_c
+        A_c, lo, hi, AtA, n_rows = cs
         Gr, info = _boxls.admm_box_qp(
             H, self.Ar, A_c, lo, hi, AtA=AtA, max_iter=max_iter, tol=tol,
-            over_relax=over_relax)
+            over_relax=over_relax, n_rows=n_rows, axis=axis)
         self.admm_info = info
         self.Ar = Gr
         self.Vr = Gr / self.Sigma_r[None, :]
@@ -1253,12 +1272,19 @@ class StreamingROM(ROM):
         the frozen fit statistics and folded in by Brand's update
         (:meth:`ROM.update_basis` semantics); the original snapshots are
         never read again.  The fitted full-width spectrum no longer
-        describes the enlarged set and is dropped."""
-        self._unsharded('update_basis')
+        describes the enlarged set and is dropped.
+
+        After a fit sharded over several ranks (``fit(mesh=...)``, called
+        on every rank with the same ``X_new``) each rank reads only its
+        rows of ``X_new``, scales them with its rows of the statistics and
+        keeps its rows of the updated ``Ur``; the update's small factors
+        (``Sigma_r``, ``Vr``, ``Ar``, ``r``) are replicated
+        (:meth:`ROM._update_basis_core`)."""
         if not hasattr(self, "Ur"):
             raise AttributeError(
                 "The fit function has to be called before update_basis.")
         n = self.store.shape[0]
+        a, b = self._shard_axis()[3]
         if isinstance(X_new, (np.ndarray, torch.Tensor)):
             Xn_h = to_numpy(X_new).astype(self.dtype, copy=False)
             if Xn_h.ndim == 1:
@@ -1267,16 +1293,18 @@ class StreamingROM(ROM):
                 raise ValueError(
                     f"X_new has {Xn_h.shape[0]} rows; expected {n} "
                     f"(the fitted snapshot dimension).")
+            Xn_h = Xn_h[a:b]
         else:
             new_store = open_store(X_new)
             if new_store.shape[0] != n:
                 raise ValueError(
                     f"new source has {new_store.shape[0]} rows; expected "
                     f"{n} (the fitted snapshot dimension).")
-            Xn_h = np.empty((n, new_store.shape[1]), dtype=self.dtype)
+            Xn_h = np.empty((b - a, new_store.shape[1]), dtype=self.dtype)
             for row0, chunk in iter_chunks(new_store, self.chunk_rows,
-                                           self.dtype, self.prefetch):
-                Xn_h[row0:row0 + chunk.shape[0]] = chunk
+                                           self.dtype, self.prefetch,
+                                           rows=(a, b)):
+                Xn_h[row0 - a:row0 - a + chunk.shape[0]] = chunk
         cnt_h, scl_h = to_numpy_once(self.X_cnt[:, 0], self.X_scl[:, 0])
         X0n = as_tensor((Xn_h - cnt_h[:, None]) / scl_h[:, None],
                         self.device, dtype=self.Ur.dtype)

@@ -5,7 +5,7 @@ Run from the root of a checkout::
 
     python3 profile_torch.py [qrcp] [chol] [spr] [gp] [serving] [mfk]
                              [placement] [dynamics] [ctc] [update]
-                             [refine]
+                             [refine] [lanes]
 
 With no arguments it runs every section.  ``qrcp``: the QRCP kernel's time
 per call against k on random panels of the main path's shapes and layout
@@ -85,7 +85,17 @@ and 3D (1,723,599 × 45, r = 14, svd_width = 28) — it prints:
   leading dimensions that phase 20's fit resolves (angle ≤ 1e-2 rad), the
   GP NRMSE (``gpr_end_to_end`` and the SingleTask class flow) against the
   float64 run, and the walls of ``spr_end_to_end`` and of the class-API
-  fit (CUDA events, calls in turns).
+  fit (CUDA events, calls in turns);
+* ``lanes``: fp32 co-kriging split by outputs against the whole batch
+  (``parallel.sharded.sharded_mfk_end_to_end`` gives each rank of the
+  ``mode`` axis its share of the lanes): ``mfk_end_to_end`` on the dryrun's
+  set (``harness.dryrun_mfk_data``, K = 8) and on the JAX split test's set
+  (``harness.mfk_data``), whole and as two halves of the outputs — the
+  largest differences of the mean, the MSE and log10 θ; then, along the
+  whole run's θ search, the first batched NLL (or value, gradient and
+  Hessian) evaluation whose first lanes, evaluated alone on the same
+  inputs, round differently, and which of its steps (θ, the correlation
+  matrices, the inverse, the products, the solve) does.
 
 It needs a card and stops without one.  Every number it prints was
 measured on the card named on its first line.
@@ -313,6 +323,137 @@ def refine_report(dev, cs, flag, cube, say, n_features=N_FEATURES, r=R,
         del X, T
 
 
+def lanes_report(dev, say=print):
+    """The ``lanes`` section (see the module docstring); runs on ``dev``,
+    so a CPU run reproduces it off the card."""
+    import numpy as np
+    import torch
+    from openmeasure_torch.linalg import chol as C
+    from openmeasure_torch.multifi import mfk as M
+    from openmeasure_torch.parallel import harness as H
+    from openmeasure_torch.pipelines import mfk_end_to_end
+
+    def first(x, k):
+        return x[:k] if isinstance(x, torch.Tensor) else x
+
+    def same(a, b):
+        if isinstance(a, (tuple, list)):
+            return all(same(x, y) for x, y in zip(a, b))
+        return bool(torch.equal(a, b))
+
+    for name, data in (("dryrun set", H.dryrun_mfk_data()),
+                       ("split-test set", [np.asarray(a, np.float32)
+                                           for a in H.mfk_data()])):
+        X_lf, Y_lf, X_hf, Y_hf, X_t = data
+        calls = []
+        nll, vgh = M._level_nll, M._value_grad_hess
+
+        def rec_nll(lt, X, F, y):
+            out = nll(lt, X, F, y)
+            calls.append(("nll", (lt.detach(), X, F, y), out.detach()))
+            return out
+
+        def rec_vgh(lt, X, F, y):
+            out = vgh(lt, X, F, y)
+            calls.append(("vgh", (lt.detach(), X, F, y), out))
+            return out
+
+        M._level_nll, M._value_grad_hess = rec_nll, rec_vgh
+        try:
+            whole = mfk_end_to_end(*data, device=dev)
+        finally:
+            M._level_nll, M._value_grad_hess = nll, vgh
+        K = Y_lf.shape[0]
+        parts = [mfk_end_to_end(X_lf, Y_lf[a:b], X_hf, Y_hf[a:b], X_t,
+                                device=dev)
+                 for a, b in ((0, K // 2), (K // 2, K))]
+        mean = torch.cat([p.mean for p in parts])
+        mse = torch.cat([p.mse for p in parts])
+        theta = torch.cat([p.theta for p in parts], dim=1)
+        dm = float((mean - whole.mean).abs().max() / whole.mean.abs().max())
+        dv = float((mse - whole.mse).abs().max() / whole.mse.abs().max())
+        dt = float((torch.log10(theta) - torch.log10(whole.theta)).abs()
+                   .max())
+        say(f"lanes, {name} (fp32, K = {K}): the two halves of the outputs "
+            f"against the whole batch: mean {dm:.3e} of max|mean|, MSE "
+            f"{dv:.3e} of max|MSE|, log10 θ {dt:.3e}; equal="
+            f"{bool(torch.equal(mean, whole.mean))}; Newton steps whole "
+            f"{whole.newton_steps.tolist()}, halves "
+            f"{[p.newton_steps.tolist() for p in parts]}", flush=True)
+        for i, (kind, args, out) in enumerate(calls):
+            B = args[0].shape[0]
+            half = [first(a, B // 2) for a in args]
+            again = (nll if kind == "nll" else vgh)(*half)
+            if same(first(out, B // 2) if kind == "nll"
+                    else tuple(o[:B // 2] for o in out), again):
+                continue
+            lt, X, F, y = half
+
+            def lane_free(fn, *xs):
+                """``fn`` on these lanes alone equals its first half on
+                the lanes twice over (the whole batch's lane count)?"""
+                a = fn(*xs)
+                b = fn(*(torch.cat([x, x]) for x in xs))
+                if isinstance(a, tuple):
+                    return same(a, tuple(t[:B // 2] for t in b))
+                return same(a, b[:B // 2])
+
+            def vjp(fwd):
+                def fn(x, *u):
+                    with torch.enable_grad():
+                        x = x.detach().requires_grad_(True)
+                        out = fwd(x)
+                        outs = out if isinstance(out, tuple) else (out,)
+                        return torch.autograd.grad(outs, x, u)[0]
+                return fn
+
+            g = torch.Generator(device=lt.device).manual_seed(0)
+            R = M._corr_matrix(lt, X)
+            upR = torch.randn(R.shape, generator=g, device=lt.device,
+                              dtype=R.dtype)
+            Ri, ld = C.chol_inv_logdet(R)
+            steps = {
+                "10**log10 θ": lane_free(M._pow10, lt),
+                "correlation": lane_free(lambda t: M._corr_matrix(t, X), lt),
+                "chol_inv_logdet": lane_free(C.chol_inv_logdet, R),
+                "R⁻¹F (bmm)": lane_free(lambda a, b: a @ b, Ri, F),
+                "FᵀR⁻¹F (bmm)": lane_free(lambda a, f_: f_.mT @ (a @ f_),
+                                          Ri, F),
+                "R⁻¹y (bmm)": lane_free(M._mv, Ri, y),
+                "GLS solve": lane_free(
+                    M._gls_solve, F.mT @ (Ri @ F), M._mv(F.mT, M._mv(Ri, y))),
+                "yᵀR⁻¹y (bmm)": lane_free(
+                    lambda a, v: M._dot(v, M._mv(a, v)), Ri, y),
+                "NLL": lane_free(lambda t, f_, y_: M._level_nll(t, X, f_, y_),
+                                 lt, F, y),
+                "its gradient": lane_free(
+                    lambda t, f_, y_: M._value_grad_hess(t, X, f_, y_)[1],
+                    lt, F, y),
+                "its Hessian": lane_free(
+                    lambda t, f_, y_: M._value_grad_hess(t, X, f_, y_)[2],
+                    lt, F, y),
+                "backward of the correlation": lane_free(
+                    vjp(lambda t: M._corr_matrix(t, X)), lt, upR),
+                "backward of 10**": lane_free(
+                    vjp(M._pow10), lt, torch.ones_like(lt)),
+                "backward of the θ contraction": lane_free(
+                    vjp(lambda th: M._corr(th, X, X)), M._pow10(lt),
+                    upR),
+                "backward of chol_inv_logdet": lane_free(
+                    vjp(C.chol_inv_logdet), R, upR, torch.ones_like(ld)),
+                "backward of a bmm": lane_free(
+                    vjp(lambda a: a @ a.mT), Ri, torch.ones_like(Ri)),
+            }
+            say(f"  call {i} ({kind}, {B} lanes): the first {B // 2} lanes "
+                f"alone round differently; lane-count independent steps: "
+                + ", ".join(f"{k} {v}" for k, v in steps.items()),
+                flush=True)
+            break
+        else:
+            say(f"  every one of the {len(calls)} batched evaluations gives "
+                "its first half of lanes bit for bit alone", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -335,7 +476,7 @@ def main() -> int:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     known = {"qrcp", "chol", "spr", "gp", "serving", "mfk", "placement",
-             "dynamics", "ctc", "update", "refine"}
+             "dynamics", "ctc", "update", "refine", "lanes"}
     sections = set(sys.argv[1:]) or known
     unknown = sections - known
     if unknown:
@@ -780,6 +921,8 @@ def main() -> int:
         refine_report(dev, cs, make_flame_dataset(dtype=np.float32),
                       make_flame_dataset(dtype=np.float32, **CUBE),
                       lambda msg: print(msg, flush=True))
+    if "lanes" in sections:
+        lanes_report(dev)
     print(smi, flush=True)
     return 0
 
