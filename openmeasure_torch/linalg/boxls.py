@@ -26,7 +26,9 @@ Host reads: with ``tol == 0`` (the serving budget) the loop runs exactly
 ``max_iter`` iterations and reads nothing back.  With ``tol > 0`` it reads
 one flag — "has every element stopped?" — every :data:`CHECK_EVERY`
 iterations; iterations past an element's stop are masked no-ops, so the
-result does not depend on that interval.
+result does not depend on that interval.  While the recorder of
+:mod:`..utils.logging` is on, a solve is one ``boxls.admm`` span holding
+one ``boxls.iter`` span an iteration.
 
 The batched (r, r) factorizations use ``torch.linalg.cholesky_ex`` (no
 error check, hence no host read) and ``torch.cholesky_solve``: the JAX
@@ -47,6 +49,7 @@ import torch
 
 from ..core.device import as_tensor
 from ..parallel import _comm
+from ..utils import logging as _log
 from .chol import cholesky_nan
 
 # iterations between host reads of "every element stopped" when tol > 0
@@ -290,10 +293,13 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
     k = torch.zeros(b, dtype=torch.int32, device=dev)
     conv = torch.zeros(b, dtype=torch.bool, device=dev)
 
+    rec = _log.recorder()        # taken once: each iteration's span inline
     for it in range(max_iter):
         if has_tol and it and it % CHECK_EVERY == 0 and \
                 not bool(torch.any(~conv)):
             break
+        if rec is not None:
+            at = rec.begin("boxls.iter")
         fac = factor(rho) if adapt_rho else fixed_fac
         g_n = solve(fac, c + rho[:, None] * op.adj(z - w))
         Ag = op.fwd(g_n)
@@ -302,6 +308,8 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
         w_n = w + Ag_rel - z_n
         if not need_norms:
             g, z, w = g_n, z_n, w_n
+            if rec is not None:
+                rec.end(at)
             continue
         nrm = op.norms(Ag - z_n, z_n, *((Ag,) if has_tol else ()))
         pri_n = nrm[0] / sqrt_n
@@ -337,6 +345,8 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
         dua = torch.where(act, dua_n, dua)
         k = k + act.to(torch.int32)
         conv = conv | conv_n
+        if rec is not None:
+            rec.end(at)
 
     if not need_norms:
         k = torch.full((b,), max_iter, dtype=torch.int32, device=dev)
@@ -415,8 +425,9 @@ def admm_box_qp(H, c, A, lo, hi, AtA=None, rho=None, max_iter: int = 2000,
         AtA = A.T @ A if axis is None else axis.sum(A.T @ A)
     b = _batch_size((c, 2), (H, 3), (lo, 2), (hi, 2), (AtA, 3))
     c = torch.broadcast_to(c, (b, c.shape[-1]))
-    return _admm(H, c, _Operator(A, axis=axis), lo, hi, AtA, rho, max_iter,
-                 tol, over_relax, adapt_rho, batched, n_rows)
+    with _log.span("boxls.admm"):
+        return _admm(H, c, _Operator(A, axis=axis), lo, hi, AtA, rho,
+                     max_iter, tol, over_relax, adapt_rho, batched, n_rows)
 
 
 def box_constrained_lstsq(Theta, y, w_diag, A, lo, hi, AtA=None,
@@ -472,8 +483,10 @@ def box_constrained_map(mean, cov, A, lo, hi, AtA=None,
     if AtA is None:
         AtA = A.T @ A if axis is None else axis.sum(A.T @ A)
     ALtAL = L.mT @ (AtA @ L)
-    u, info = _admm(H, c, _Operator(A, L, axis), lo - A_mu, hi - A_mu, ALtAL,
-                    None, max_iter, tol, over_relax, adapt_rho, True, n_rows)
+    with _log.span("boxls.admm"):
+        u, info = _admm(H, c, _Operator(A, L, axis), lo - A_mu, hi - A_mu,
+                        ALtAL, None, max_iter, tol, over_relax, adapt_rho,
+                        True, n_rows)
     v = mean + (L @ u[..., None])[..., 0]
     if not batched:
         return v[0], ADMMInfo(*(t[0] for t in info))

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import logging as _log
 
 
 def canonical_signs(U):
@@ -84,9 +85,14 @@ def floored_norms(colnorm, n: int, dtype, tiny_dtype=None):
 
 def _eigh_desc(G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eigenpairs in DESCENDING order.  Porting trap 4: ``V[:, ::-1]`` and
-    ``evals[::-1]`` are ``torch.flip`` (torch has no negative strides)."""
-    evals, V = torch.linalg.eigh(G)          # ascending
-    return torch.flip(evals, dims=(0,)), torch.flip(V, dims=(1,))
+    ``evals[::-1]`` are ``torch.flip`` (torch has no negative strides).
+    On the card ``torch.linalg.eigh`` reads its ``info`` back to check
+    it: one ``host_reads``."""
+    with _log.span("svd.eigh"):
+        if G.is_cuda:
+            _log.count("host_reads")
+        evals, V = torch.linalg.eigh(G)          # ascending
+        return torch.flip(evals, dims=(0,)), torch.flip(V, dims=(1,))
 
 
 def svd_tall(
@@ -120,18 +126,22 @@ def svd_tall(
         if width == X0.shape[1]:
             width = None
     n, m = X0.shape
-    G = X0.T @ X0                              # (m, m) — one panel pass
+    with _log.span("svd.gram"):
+        G = X0.T @ X0                          # (m, m) — one panel pass
     S2, V = _eigh_desc(G)
 
-    if refine == 0 and rank is not None:
-        B = X0 @ V[:, :rank]
-    elif width is not None and refine > 0:
-        B = X0 @ V[:, :width]                  # (n, w) panel
-    else:
-        B = X0 @ V                             # (n, m) — second panel pass
+    with _log.span("svd.panel"):
+        if refine == 0 and rank is not None:
+            B = X0 @ V[:, :rank]
+        elif width is not None and refine > 0:
+            B = X0 @ V[:, :width]              # (n, w) panel
+        else:
+            B = X0 @ V                         # (n, m) — second panel pass
     for i in range(refine):
         # one orthogonal-iteration step: re-diagonalize B's Gram
-        e2, V2 = _eigh_desc(B.T @ B)
+        with _log.span("svd.gram"):
+            G = B.T @ B
+        e2, V2 = _eigh_desc(G)
         if width is not None:
             # refined eigenvalues cover the leading-w subspace only; the
             # tail keeps the first Gram's estimates.  Porting trap 4:
@@ -145,7 +155,8 @@ def svd_tall(
             V = V @ V2
         if rank is not None and i == refine - 1:
             V2 = V2[:, :rank]                  # narrow only the final write
-        B = B @ V2
+        with _log.span("svd.panel"):
+            B = B @ V2
 
     fi = torch.finfo(X0.dtype)
     # rank-deficiency floor eps·max·√n, plus an absolute tiny floor so an

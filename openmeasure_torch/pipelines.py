@@ -4,8 +4,12 @@ the SPR and GP-ROM parts).
 :func:`spr_end_to_end` is the soft-sensing flow in one call — scale →
 Gram-SVD → truncate → QRCP placement → gappy-POD solve → reconstruct — the
 flagship path of the package.  It runs eagerly on the tensors' device;
-nothing in it synchronizes with the host: the pivots the CUDA kernel
-selects stay on the card and index the panel there.
+the host waits on the card only in the Gram-SVD's eigensolver, whose
+error check reads each ``torch.linalg.eigh``'s ``info`` back (two reads
+at the card's ``refine=1``, counted as ``host_reads``): the pivots the
+CUDA kernel selects stay on the card and index the panel there.  While
+the recorder of :mod:`.utils.logging` is on, a call is one
+``fit.spr_end_to_end`` span over its stages.
 
 :func:`gpr_end_to_end` is the GP-ROM flow in one call — scale → POD →
 train r per-mode GPs (batched Adam with early stop, the batched SPD
@@ -35,6 +39,7 @@ from .gp import kernels as _K
 from .linalg import svd as _svd
 from .linalg.qrcp_cuda import qrcp_pivots_auto
 from .multifi import mfk as _M
+from .utils import logging as _log
 
 
 class SPRResult(NamedTuple):
@@ -67,39 +72,44 @@ def spr_end_to_end(
     their dtype.  ``svd_width``: optional width (r ≤ w ≤ m) of the SVD
     refine subspace (see :func:`linalg.svd.svd_tall`).
     """
-    dev = resolve_device(device)
-    X_train = as_tensor(X_train, dev)
-    X_test = as_tensor(X_test, dev)
-    X0, cnt, scl = _scaling.scale_data(X_train, n_features, scale_type, 1)
-    # normalize=False: the basis normalization U = B·diag(1/‖b_i‖) never
-    # materializes — the QRCP kernel row-scales the panel in-kernel and the
-    # (r,)-sized factor folds into Theta and the reconstruction.  Porting
-    # trap 8: canonicalize=False leaves each mode's sign to the eigensolver;
-    # pivots, the Theta solve and X_rec do not depend on it (Ar does, per
-    # mode)
-    B, S, _ = _svd.svd_tall(X0, refine=refine, canonicalize=False, rank=r,
-                            width=svd_width, normalize=False)
-    exp_var = _svd.explained_variance(S)[:r]
-    dinv = 1.0 / _svd.floored_norms(S[:r], X0.shape[0], X0.dtype)
+    with _log.span("fit.spr_end_to_end"):
+        dev = resolve_device(device)
+        X_train = as_tensor(X_train, dev)
+        X_test = as_tensor(X_test, dev)
+        with _log.span("fit.scale"):
+            X0, cnt, scl = _scaling.scale_data(X_train, n_features,
+                                               scale_type, 1)
+        # normalize=False: the basis normalization U = B·diag(1/‖b_i‖)
+        # never materializes — the QRCP kernel row-scales the panel
+        # in-kernel and the (r,)-sized factor folds into Theta and the
+        # reconstruction.  Porting trap 8: canonicalize=False leaves each
+        # mode's sign to the eigensolver; pivots, the Theta solve and X_rec
+        # do not depend on it (Ar does, per mode)
+        B, S, _ = _svd.svd_tall(X0, refine=refine, canonicalize=False,
+                                rank=r, width=svd_width, normalize=False)
+        exp_var = _svd.explained_variance(S)[:r]
+        dinv = 1.0 / _svd.floored_norms(S[:r], X0.shape[0], X0.dtype)
 
-    # B.T is the (r, n) panel; the kernel reads it through its strides
-    pivots = qrcp_pivots_auto(B.T, r, row_scale=dinv)
-    p = pivots.long()
+        # B.T is the (r, n) panel; the kernel reads it through its strides
+        with _log.span("fit.place"):
+            pivots = qrcp_pivots_auto(B.T, r, row_scale=dinv)
+        p = pivots.long()
 
-    Theta = B[p, :] * dinv[None, :]     # (r, r) == Ur[pivots, :]
-    y = X_test[p, :]                    # raw sensor readings, (r, m_test)
-    y0 = (y - cnt[p, 0][:, None]) / scl[p, 0][:, None]
+        with _log.span("fit.solve"):
+            Theta = B[p, :] * dinv[None, :]     # (r, r) == Ur[pivots, :]
+            y = X_test[p, :]                    # raw readings, (r, m_test)
+            y0 = (y - cnt[p, 0][:, None]) / scl[p, 0][:, None]
 
-    # solve_ex: a singular Theta gives NaN, as jnp.linalg.solve does,
-    # where torch.linalg.solve raises after a host read
-    Ar = torch.linalg.solve_ex(Theta, y0)[0].T     # (m_test, r)
-    X_rec0 = B @ (Ar * dinv[None, :]).T
-    X_rec = X_rec0 * scl + cnt
+            # solve_ex: a singular Theta gives NaN, as jnp.linalg.solve
+            # does, where torch.linalg.solve raises after a host read
+            Ar = torch.linalg.solve_ex(Theta, y0)[0].T     # (m_test, r)
+            X_rec0 = B @ (Ar * dinv[None, :]).T
+            X_rec = X_rec0 * scl + cnt
 
-    err = X_rec - X_test
-    nrmse = torch.sqrt(torch.mean(err * err)) / (
-        torch.amax(X_test) - torch.amin(X_test))
-    return SPRResult(X_rec, pivots, Ar, nrmse, exp_var)
+            err = X_rec - X_test
+            nrmse = torch.sqrt(torch.mean(err * err)) / (
+                torch.amax(X_test) - torch.amin(X_test))
+        return SPRResult(X_rec, pivots, Ar, nrmse, exp_var)
 
 
 def pod_fit(

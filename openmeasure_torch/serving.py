@@ -34,6 +34,9 @@ takes the batch as a leading axis.  The constrained solves run a fixed
 iteration budget (``tol = 0``): every request does the same work, and the
 budget is the accuracy knob.  The Kalman filter's scan over frames is a
 Python loop over device tensors: a batch of K frames reads nothing back.
+While the recorder of :mod:`.utils.logging` is on, a ``SoftSensor``
+batch is one ``serve.predict_batch`` span over ``serve.solve``, the
+ADMM's ``boxls.admm`` (COLS) and ``serve.reconstruct``.
 
 ``shard(mesh)`` row-shards a sensor's n-row state over a mesh axis
 (:func:`shard_state_rows`): each rank keeps its rows of ``Ur``, the
@@ -72,6 +75,7 @@ from .linalg import boxls as _boxls
 from .multifi.mfk import predict_levels_batch
 from .rom.rom import is_torch_sparse, torch_sparse_to_scipy
 from .sensing.decoder import _forward as _decoder_forward
+from .utils import logging as _log
 
 _ROW_KEYS = ("Ur", "X_cnt", "X_scl", "A_c", "lo", "hi")
 
@@ -137,52 +141,55 @@ def _predict_math(state, Y_values, Y_sigma, method, admm_iters, over_relax,
     solve → optional COLS ADMM → reconstruct + unscale.  ``Y_values`` and
     ``Y_sigma`` are (b, s); returns fields (b, n), coefficients (b, r) and
     coefficient σ (b, r)."""
-    y0 = (Y_values - state["cnt_sensors"]) / state["scl_sensors"]
-    sig0 = Y_sigma / state["scl_sensors"]
-    # the weighted path triggers on any NONZERO σ (SPR.predict's test), so
-    # both paths agree even on malformed, negative-σ input
-    use_w = torch.any(Y_sigma != 0, dim=-1, keepdim=True)
-    # a σ=0 entry inside an otherwise-weighted vector gets the LARGEST
-    # finite weight of its vector, as in SPR.predict; a NaN σ propagates
-    pos = sig0 > 0
-    inv_sigma = torch.where(pos, 1.0 / torch.where(pos, sig0, 1.0), 0.0)
-    w_max = torch.amax(inv_sigma, dim=-1, keepdim=True)
-    w = torch.where(use_w, torch.where(pos, inv_sigma, w_max), 1.0)
-    w = torch.where(torch.isnan(sig0), float("nan"), w)
-    # weighted LS by QR + one iterative-refinement step, not pinv: the
-    # scaled per-feature σ make the weights span decades, cond(WΘ) reaches
-    # ~1e5, and an fp32 pinv on the device loses ~1 % there
-    Theta = state["Theta"]
-    WT = Theta * w[..., :, None]                                 # (b, s, r)
-    Q, R = torch.linalg.qr(WT)
-    # rank-deficiency guard: floor R's diagonal at eps-level relative to
-    # max|diag(R)| (a masked placement can leave Θ singular); the all-zero
-    # operator keeps a floor of eps · s
-    d = torch.diagonal(R, dim1=-2, dim2=-1)
-    dmax = torch.amax(torch.abs(d), dim=-1, keepdim=True)
-    floor = (torch.where(dmax > 0, dmax, 1.0)
-             * (torch.finfo(d.dtype).eps * WT.shape[-2]))
-    d_safe = torch.where(torch.abs(d) < floor,
-                         torch.where(d < 0, -floor, floor), d)
-    R = R + torch.diag_embed(d_safe - d)
+    with _log.span("serve.solve"):
+        y0 = (Y_values - state["cnt_sensors"]) / state["scl_sensors"]
+        sig0 = Y_sigma / state["scl_sensors"]
+        # the weighted path triggers on any NONZERO σ (SPR.predict's
+        # test), so both paths agree even on malformed, negative-σ input
+        use_w = torch.any(Y_sigma != 0, dim=-1, keepdim=True)
+        # a σ=0 entry inside an otherwise-weighted vector gets the
+        # LARGEST finite weight of its vector, as in SPR.predict; a NaN σ
+        # propagates
+        pos = sig0 > 0
+        inv_sigma = torch.where(pos, 1.0 / torch.where(pos, sig0, 1.0), 0.0)
+        w_max = torch.amax(inv_sigma, dim=-1, keepdim=True)
+        w = torch.where(use_w, torch.where(pos, inv_sigma, w_max), 1.0)
+        w = torch.where(torch.isnan(sig0), float("nan"), w)
+        # weighted LS by QR + one iterative-refinement step, not pinv:
+        # the scaled per-feature σ make the weights span decades, cond(WΘ)
+        # reaches ~1e5, and an fp32 pinv on the device loses ~1 % there
+        Theta = state["Theta"]
+        WT = Theta * w[..., :, None]                             # (b, s, r)
+        Q, R = torch.linalg.qr(WT)
+        # rank-deficiency guard: floor R's diagonal at eps-level relative
+        # to max|diag(R)| (a masked placement can leave Θ singular); the
+        # all-zero operator keeps a floor of eps · s
+        d = torch.diagonal(R, dim1=-2, dim2=-1)
+        dmax = torch.amax(torch.abs(d), dim=-1, keepdim=True)
+        floor = (torch.where(dmax > 0, dmax, 1.0)
+                 * (torch.finfo(d.dtype).eps * WT.shape[-2]))
+        d_safe = torch.where(torch.abs(d) < floor,
+                             torch.where(d < 0, -floor, floor), d)
+        R = R + torch.diag_embed(d_safe - d)
 
-    def wsolve(rhs):
-        rhs = rhs[..., None]
-        x = torch.linalg.solve_triangular(R, Q.mT @ rhs, upper=True)
-        resid = rhs - WT @ x
-        return (x + torch.linalg.solve_triangular(R, Q.mT @ resid,
-                                                  upper=True))[..., 0]
+        def wsolve(rhs):
+            rhs = rhs[..., None]
+            x = torch.linalg.solve_triangular(R, Q.mT @ rhs, upper=True)
+            resid = rhs - WT @ x
+            return (x + torch.linalg.solve_triangular(R, Q.mT @ resid,
+                                                      upper=True))[..., 0]
 
+        if method != "COLS":
+            a = torch.where(use_w, wsolve(w * y0), y0 @ state["pinv"].T)
     if method == "COLS":
         a, _ = _boxls.box_constrained_lstsq(
             Theta, y0, w, state["A_c"], state["lo"], state["hi"],
             AtA=state["AtA"], max_iter=admm_iters, tol=0.0,
             over_relax=over_relax, n_rows=state.get("n_c"),
             adapt_rho=adapt_rho, axis=state.get("axis"))
-    else:
-        a = torch.where(use_w, wsolve(w * y0), y0 @ state["pinv"].T)
-    a_sigma = torch.where(use_w, torch.abs(wsolve(sig0)), 0.0)
-    x = (a @ state["Ur"].T) * state["X_scl"] + state["X_cnt"]
+    with _log.span("serve.reconstruct"):
+        a_sigma = torch.where(use_w, torch.abs(wsolve(sig0)), 0.0)
+        x = (a @ state["Ur"].T) * state["X_scl"] + state["X_cnt"]
     return _cut(state, x), a, a_sigma
 
 
@@ -390,17 +397,20 @@ class SoftSensor:
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """A batch of requests ``Y_values`` (b, s) → (fields (b, n),
         coefficients (b, r), coefficient σ (b, r)) in one call, with no read
-        back to the host: frame streams should batch."""
-        Y_values = as_tensor(Y_values, self.device, dtype=self.Ur.dtype)
-        if Y_values.ndim != 2 or Y_values.shape[1] != self.s:
-            raise ValueError(
-                f"Y_values must be (batch, s={self.s}); got "
-                f"{tuple(Y_values.shape)}.")
-        if Y_sigma is None:
-            Y_sigma = torch.zeros_like(Y_values)
-        else:
-            Y_sigma = as_tensor(Y_sigma, self.device, dtype=self.Ur.dtype)
-        return _predict_math(self._state, Y_values, Y_sigma, **self._kw)
+        back to the host: frame streams should batch.  The batch is one
+        ``serve.predict_batch`` span while the recorder is on."""
+        with _log.span("serve.predict_batch"):
+            Y_values = as_tensor(Y_values, self.device, dtype=self.Ur.dtype)
+            if Y_values.ndim != 2 or Y_values.shape[1] != self.s:
+                raise ValueError(
+                    f"Y_values must be (batch, s={self.s}); got "
+                    f"{tuple(Y_values.shape)}.")
+            if Y_sigma is None:
+                Y_sigma = torch.zeros_like(Y_values)
+            else:
+                Y_sigma = as_tensor(Y_sigma, self.device,
+                                    dtype=self.Ur.dtype)
+            return _predict_math(self._state, Y_values, Y_sigma, **self._kw)
 
     def warmup(self) -> "SoftSensor":
         """Run one request, so the first real one finds the library

@@ -76,6 +76,7 @@ def test_load_flame_dataset_falls_back_on_missing_or_lfs_files(tmp_path):
 
 
 def test_logging_helpers(tmp_path, caplog):
+    import json
     import logging
 
     import torch
@@ -84,16 +85,39 @@ def test_logging_helpers(tmp_path, caplog):
     tlog.set_verbosity(logging.INFO)
     try:
         with caplog.at_level(logging.INFO, logger="openmeasure_torch"):
-            with tlog.timed("block"):
-                pass
-            with tlog.timed("quiet", verbose=False):
-                pass
-        assert [r.getMessage().split(":")[0] for r in caplog.records] == [
-            "block"]
+            tlog.logger.info("block")
+            tlog.logger.debug("quiet")
+        assert [r.getMessage() for r in caplog.records] == ["block"]
     finally:
         tlog.set_verbosity(logging.WARNING)
+    # the recorder: off outside its block, a nested block records apart
+    with tlog.recording() as rec:
+        with tlog.span("block"):
+            tlog.count("n", 2)
+            with tlog.recording() as inner:
+                with tlog.span("inner"):
+                    pass
+            tlog.count("n")
+    assert tlog.recorder() is None
+    assert [(s.name, s.parent, s.call) for s in rec.spans] == [
+        ("block", -1, 0)]
+    assert rec.counters == {"n": 3}
+    assert [s.name for s in inner.spans] == ["inner"]
     with tlog.device_trace(None):
         pass
     with tlog.device_trace(str(tmp_path / "trace")):
-        torch.ones(3).sum()
+        with tlog.span("block"):
+            torch.ones(3).sum()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    # spans.json beside it, on the trace's clock and origin
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert spans["baseTimeNanoseconds"] == trace.get("baseTimeNanoseconds",
+                                                     0)
+    (block,) = spans["traceEvents"]
+    assert block["name"] == "block" and block["args"]["call"] == 0
+    ops = [e for e in trace["traceEvents"]
+           if e.get("name", "").startswith("aten::") and "dur" in e]
+    assert ops and all(
+        block["ts"] <= e["ts"]
+        and e["ts"] + e["dur"] <= block["ts"] + block["dur"] for e in ops)

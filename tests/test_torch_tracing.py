@@ -1,0 +1,202 @@
+"""The port's span and counter recorder (``openmeasure_torch/utils/
+logging.py``) at the layer boundaries of a served COLS batch
+(``SoftSensor.predict_batch``) and of the fit (``spr_end_to_end``): off,
+it records nothing and reads no clock; on, the spans nest as the layers
+call each other, share their root's call id, lie on ``torch.profiler``'s
+clock, and leave the outputs as they were.
+
+CPU at tiny sizes; the one ``cuda`` test holds the ``host_reads``
+counter of a fit on the card to the reads that ``torch.cuda``'s sync
+debug mode reports.  This file imports neither JAX nor the JAX package,
+so on a machine with a card it runs as::
+
+    python -m pytest tests/test_torch_tracing.py --noconftest -q
+"""
+
+import types
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from openmeasure_torch import SPR, SoftSensor
+from openmeasure_torch.pipelines import spr_end_to_end
+from openmeasure_torch.utils import logging as tlog
+
+N_FEATURES, N_POINTS, M, R = 2, 40, 8, 4
+
+
+def _snapshots(seed, m=M, device="cpu"):
+    rng = np.random.default_rng(seed)
+    X = rng.random((N_FEATURES * N_POINTS, m)) + np.arange(m) * 0.1
+    return torch.as_tensor(X, dtype=torch.float64, device=device)
+
+
+def _sensor(admm_iters, admm_rho="adaptive", seed=0):
+    """A COLS sensor on a tiny model, per-feature limits ± 5 % of the
+    span, and a batch of 3 frames with σ, read at its sensors."""
+    X = _snapshots(seed)
+    xyz = np.random.default_rng(seed).random((N_POINTS, 2))
+    spr = SPR(X, N_FEATURES, xyz, device="cpu")
+    spr.fit(select_modes="number", n_modes=R)
+    C = spr.optimal_placement("qr")
+    Xb = X.reshape(N_FEATURES, -1)
+    lo, hi = Xb.amin(dim=1), Xb.amax(dim=1)
+    pad = 0.05 * (hi - lo)
+    spr.train(C, method="COLS", limits=[(lo - pad).numpy(),
+                                        (hi + pad).numpy()])
+    sensor = SoftSensor.from_spr(spr, dtype=torch.float64,
+                                 admm_iters=admm_iters, admm_rho=admm_rho)
+    piv = C.argmax(dim=1)
+    Y = _snapshots(seed + 1, m=3)[piv].T.contiguous()
+    return sensor, Y, 0.01 * torch.ones_like(Y)
+
+
+def _fit(**kw):
+    return spr_end_to_end(_snapshots(3), _snapshots(4, m=2), N_FEATURES, R,
+                          device="cpu", **kw)
+
+
+def _children(rec, i):
+    return [j for j, s in enumerate(rec.spans) if s.parent == i]
+
+
+def _check_tree(rec):
+    """Every span closed, inside its parent, with its root's call id."""
+    for i, s in enumerate(rec.spans):
+        assert 0 < s.start_ns <= s.end_ns
+        if s.parent < 0:
+            assert s.call == i
+        else:
+            p = rec.spans[s.parent]
+            assert s.parent < i and s.call == p.call
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+@pytest.mark.parametrize("flow", ["predict_batch", "spr_end_to_end"])
+def test_off_records_nothing(flow, monkeypatch):
+    """Off: no clock read, no span begun, no counter, and every ``span``
+    is the one shared no-op context."""
+    def boom(*a, **k):
+        raise AssertionError("the recorder worked while off")
+    monkeypatch.setattr(tlog, "time", types.SimpleNamespace(time_ns=boom))
+    monkeypatch.setattr(tlog.Recording, "begin", boom)
+    assert tlog.recorder() is None
+    assert tlog.span("a") is tlog.span("b")
+    if flow == "predict_batch":
+        sensor, Y, S = _sensor(3)
+        sensor.predict_batch(Y, S)
+    else:
+        _fit()
+    assert tlog.recorder() is None
+
+
+@pytest.mark.parametrize("admm_rho", ["adaptive", "fixed"])
+@pytest.mark.parametrize("k", [1, 7])
+def test_cols_batch_spans(k, admm_rho):
+    """A COLS batch: one ``serve.predict_batch`` root over
+    ``serve.solve``, one ``boxls.admm`` holding ``k`` ``boxls.iter`` and
+    ``serve.reconstruct``, in that order; no counter (serving reads
+    nothing back)."""
+    sensor, Y, S = _sensor(k, admm_rho)
+    with tlog.recording() as rec:
+        sensor.predict_batch(Y, S)
+    _check_tree(rec)
+    assert rec.spans[0].name == "serve.predict_batch"
+    assert [s.parent for s in rec.spans].count(-1) == 1
+    top = [rec.spans[j].name for j in _children(rec, 0)]
+    assert top == ["serve.solve", "boxls.admm", "serve.reconstruct"]
+    admm = _children(rec, 0)[1]
+    assert [rec.spans[j].name for j in _children(rec, admm)] == \
+        ["boxls.iter"] * k
+    assert len(rec.spans) == 4 + k
+    assert rec.counters == {}
+
+
+@pytest.mark.parametrize("refine", [0, 1, 2])
+def test_fit_stage_spans(refine):
+    """A fit: its stages in order under one root, one ``svd.eigh`` a
+    Gram (1 + refine), and on the CPU no ``host_reads``: nothing is read
+    back from a device."""
+    with tlog.recording() as rec:
+        _fit(refine=refine)
+    _check_tree(rec)
+    names = [s.name for s in rec.spans]
+    svd = ["svd.gram", "svd.eigh", "svd.panel"] * (1 + refine)
+    assert names == ["fit.spr_end_to_end", "fit.scale", *svd, "fit.place",
+                     "fit.solve"]
+    assert all(s.parent == 0 for s in rec.spans[1:])
+    assert rec.counters == {}
+
+
+@pytest.mark.parametrize("flow", ["predict_batch", "spr_end_to_end"])
+def test_recorded_outputs_identical(flow):
+    if flow == "predict_batch":
+        sensor, Y, S = _sensor(5)
+        run = lambda: sensor.predict_batch(Y, S)          # noqa: E731
+    else:
+        run = _fit
+    plain = run()
+    with tlog.recording() as rec:
+        recorded = run()
+    assert rec.spans
+    for a, b in zip(plain, recorded):
+        assert torch.equal(a, b)
+
+
+def test_spans_on_profiler_clock():
+    """With ``torch.profiler`` recording the host around a recorded
+    batch, every ``aten::`` operator of the call lies inside the root
+    span: the spans and the profiler's events share one clock."""
+    from torch.profiler import ProfilerActivity, profile
+    sensor, Y, S = _sensor(3)
+    sensor.predict_batch(Y, S)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tlog.recording() as rec:
+            sensor.predict_batch(Y, S)
+    root = rec.spans[0]
+    ops = [(e.start_ns(), e.end_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.name().startswith("aten::")]
+    assert len(ops) > 20
+    assert all(root.start_ns <= s and e <= root.end_ns for s, e in ops)
+
+
+def test_span_closed_on_error():
+    """An exception closes its span and those it left open inside it."""
+    with tlog.recording() as rec:
+        with pytest.raises(ValueError):
+            with tlog.span("outer"):
+                rec.begin("left open")
+                raise ValueError
+        with tlog.span("after"):
+            pass
+    outer, left, after = rec.spans
+    assert outer.end_ns > 0 and left.end_ns == 0
+    assert after.parent == -1 and after.call == 2
+
+
+@pytest.mark.cuda
+def test_fit_host_reads_on_card():
+    """On the card, ``host_reads`` counts each read of a fit that the host
+    waits on: as many as the sync debug mode warns of, one an eigh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: host reads are reads of the card")
+    dev = torch.device("cuda")
+    X = _snapshots(3, device=dev).float()
+    Xt = _snapshots(4, m=2, device=dev).float()
+    for refine in (1, 2):
+        spr_end_to_end(X, Xt, N_FEATURES, R, refine=refine, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    tlog.recording() as rec:
+                warnings.simplefilter("always")
+                spr_end_to_end(X, Xt, N_FEATURES, R, refine=refine,
+                               device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        assert rec.counters.get("host_reads", 0) == len(syncs) == 1 + refine
