@@ -31,7 +31,10 @@ paths through their user entry points:
   iterations, adaptive and fixed ρ, batches of 50 frames), held against a
   float64 sensor of the same model on the card, once with limits padded
   outward (the timed configuration) and once padded inward so that they
-  bind, and an OLS sensor against ``SPR.predict``; ``GPRSensor.from_gpr`` on the MultiTask model, without
+  bind, the fp32 batches running the ADMM kernel pair of
+  ``csrc/admm.cu``, timed at the serving shape beside its bound and its
+  plain version, and an OLS sensor against ``SPR.predict``;
+  ``GPRSensor.from_gpr`` on the MultiTask model, without
   and with limits, against the eager ``GPR.predict``; ``ROM.CPOD`` on the
   41 flagship snapshots;
 * the other placements (phase 16) at flagship width through
@@ -1825,6 +1828,8 @@ def main() -> int:
     from openmeasure_torch.core import scaling
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
     from openmeasure_torch.gp import exact_gp
+    from openmeasure_torch.linalg import admm_cuda as admm_k
+    from openmeasure_torch.linalg import boxls as boxls_mod
     from openmeasure_torch.linalg import chol as chol_plain
     from openmeasure_torch.linalg import chol_cuda as chol_kern
     from openmeasure_torch.linalg import qrcp as plain
@@ -2522,12 +2527,18 @@ def main() -> int:
                    if "synchronizing CUDA operation" in str(w.message))
 
     t_phase = time.perf_counter()
+    admm_main_launches = 0
     for mode in ("adaptive", "fixed"):
         s32 = SoftSensor.from_spr(spr_s, admm_iters=SERVE_ITERS,
                                   admm_rho=mode).warmup()
         s64 = SoftSensor.from_spr(spr_s, dtype=torch.float64,
                                   admm_iters=SERVE_ITERS, admm_rho=mode)
+        # the main path reaches csrc/admm.cu: two launches an iteration of
+        # one fp32 batch, counted from zero
+        admm_k.admm_fused.launches = 0
         x32, a32, _ = s32.predict_batch(Y)
+        n_admm = admm_k.admm_fused.launches
+        admm_main_launches += n_admm
         _, a64, _ = s64.predict_batch(Y)
         sync()
         err = float((a32.double() - a64).abs().max() / a64.abs().max())
@@ -2548,7 +2559,12 @@ def main() -> int:
             f"{'not measured' if per_batch is None else per_batch} device "
             f"kernels per batch ({'-' if per_batch is None else f'{per_batch / SERVE_ITERS:.1f}'}"
             f" per iteration); device-to-host copies in predict_batch {dtoh}, "
-            f"synchronizing calls {n_sync}")
+            f"synchronizing calls {n_sync}; csrc/admm.cu launches in one "
+            f"batch {n_admm}")
+        if n_admm != 2 * SERVE_ITERS:
+            fail(f"an fp32 COLS batch ({mode}) made {n_admm} csrc/admm.cu "
+                 f"launches, not {2 * SERVE_ITERS}: the main path missed the "
+                 f"kernels")
         if not finite or tuple(x32.shape) != (SERVE_BATCH, flag["X_train"].shape[0]):
             fail(f"COLS serving fields ({mode}) are not finite of shape "
                  f"({SERVE_BATCH}, n)")
@@ -2558,6 +2574,79 @@ def main() -> int:
             fail(f"COLS fields ({mode}) violate the limits by {viol_rel:.3e}")
         if dtoh != 0 or n_sync != 0:
             fail(f"a tol = 0 predict_batch ({mode}) read back to the host")
+
+    # the serving ADMM's kernel pair (csrc/admm.cu) at the serving shape:
+    # its device time an iteration against the bytes' bound, its result
+    # against the float64 loop, and the plain version's time (the loop of
+    # boxls._admm in fp32 on the card); no single PyTorch call runs an ADMM
+    # iteration, so there is no library yardstick
+    st_s = SoftSensor.from_spr(spr_s, admm_iters=SERVE_ITERS)._state
+    Th_s = st_s["Theta"]
+    H_s = (Th_s.T @ Th_s).expand(SERVE_BATCH, -1, -1)
+    c_s = ((Y - st_s["cnt_sensors"]) / st_s["scl_sensors"]) @ Th_s
+    A_s, lo_s, hi_s, AtA_s = (st_s[k] for k in ("A_c", "lo", "hi", "AtA"))
+    n_s, r_s = A_s.shape
+    plan_s = admm_k.device_plan(SERVE_BATCH, n_s, r_s, True, dev)
+
+    def admm_solve(iters):
+        return admm_k.admm_fused(H_s, c_s, boxls_mod._Operator(A_s), lo_s,
+                                 hi_s, AtA_s, None, iters, 1.6, True, True)
+
+    def admm_loop(iters, dtype=torch.float32):
+        H, c, A, lo, hi, AtA = (x.to(dtype) for x in (H_s, c_s, A_s, lo_s,
+                                                      hi_s, AtA_s))
+        return boxls_mod._admm(H, c, boxls_mod._Operator(A), lo, hi, AtA,
+                               None, iters, 0.0, 1.6, True, True)
+
+    g_k = admm_solve(SERVE_ITERS)[0].double()
+    g_64 = admm_loop(SERVE_ITERS, torch.float64)[0]
+    g_32 = admm_loop(SERVE_ITERS)[0].double()
+    admm_scale = float(g_64.abs().max())
+    admm_err = float((g_k - g_64).abs().max())
+    admm_loop_err = float((g_32 - g_64).abs().max())
+    admm_err_bound = 2.0 * admm_loop_err + 100 * 2.0 ** -24 * admm_scale
+    admm_row_ms, n_row = traced_ms(lambda: admm_solve(10), "row_pass", 5, 20)
+    admm_step_ms, n_step = traced_ms(lambda: admm_solve(10), "r_step", 5, 20)
+    if min(n_row, n_step) < 20:
+        fail(f"torch.profiler saw {n_row} row passes and {n_step} r-steps "
+             f"of 50")
+    admm_iter_ms = ((loop_ms(lambda: admm_solve(SERVE_ITERS), n=5)
+                     - loop_ms(lambda: admm_solve(0), n=5)) / SERVE_ITERS)
+    admm_plain_ms = ((loop_ms(lambda: admm_loop(30), n=3)
+                      - loop_ms(lambda: admm_loop(0), n=3)) / 30)
+    admm_bytes = (4 * SERVE_BATCH * n_s + n_s * r_s
+                  + lo_s.numel() + hi_s.numel()) * 4
+    admm_bound_ms = admm_bytes / HBM_BYTES_PER_S * 1e3
+    admm_ops_ms = 2.0 * 4 * r_s * SERVE_BATCH * n_s / FP32_FLOPS * 1e3
+    per_solve, _ = trace_counts(lambda: admm_solve(SERVE_ITERS))
+    log(f"  csrc/admm.cu at ({SERVE_BATCH}, {n_s:,}, {r_s}), adaptive ρ: "
+        f"an iteration {admm_iter_ms:.5f} ms on the card (CUDA events, "
+        f"({SERVE_ITERS} − 0 iterations) / {SERVE_ITERS}); row pass "
+        f"{admm_row_ms:.5f} ms, r-step {admm_step_ms:.5f} ms device time a "
+        f"launch (grid {plan_s.grid} × {32 * plan_s.warps} threads, "
+        f"{plan_s.rows} rows a block, {plan_s.smem_bytes} B shared memory); "
+        f"bound {admm_bound_ms:.5f} ms ({admm_bytes / 1e6:.1f} MB; "
+        f"operations {admm_ops_ms:.5f} ms); plain version (the fp32 loop) "
+        f"{admm_plain_ms:.4f} ms an iteration; "
+        f"{'not measured' if per_solve is None else per_solve} device "
+        f"kernels a solve of {SERVE_ITERS}; coefficients against the "
+        f"float64 loop max|Δg| {admm_err:.4e} ({admm_err / admm_scale:.4e} "
+        f"of max|g|; the fp32 loop's {admm_loop_err:.4e}, bound "
+        f"{admm_err_bound:.4e})")
+    if not admm_err <= admm_err_bound:
+        fail(f"csrc/admm.cu's coefficients lie {admm_err:.3e} from the "
+             f"float64 loop, beyond {admm_err_bound:.3e}")
+    if per_solve is not None and per_solve > 3 * SERVE_ITERS:
+        fail(f"a kernel solve ran {per_solve} device kernels, as if the "
+             f"loop had run")
+    records.append({
+        "name": "admm_fused", "route": "cuda",
+        "source": "openmeasure_torch/csrc/admm.cu", "replaces": None,
+        "launches": admm_main_launches, "max_abs_err": admm_err,
+        "ms": admm_iter_ms, "plain_ms": admm_plain_ms,
+        "bound_ms": admm_bound_ms,
+        "bound_by": "bytes" if admm_bound_ms >= admm_ops_ms else
+        "operations", "library_ms": None})
 
     # the padded limits are out of the fields' reach: the same model with
     # the limits padded inward, where the clip and the projection do work

@@ -30,6 +30,13 @@ result does not depend on that interval.  While the recorder of
 :mod:`..utils.logging` is on, a solve is one ``boxls.admm`` span holding
 one ``boxls.iter`` span an iteration.
 
+Which code runs an iteration: a CUDA float32 solve at ``tol == 0`` with an
+unsharded dense operator of at most 32 columns and no right factor (the
+fixed-budget serving batch) takes the two CUDA kernels of
+:mod:`.admm_cuda`, two launches an iteration, counted in the recorder's
+``boxls.kernel_solves``; every other solve runs the loop of
+:func:`_admm`.
+
 The batched (r, r) factorizations use ``torch.linalg.cholesky_ex`` (no
 error check, hence no host read) and ``torch.cholesky_solve``: the JAX
 package computes them with XLA's ``cho_factor``/``cho_solve`` outside any
@@ -241,6 +248,74 @@ class _Operator:
         return _comm.norms(self.axis, *vs)
 
 
+def _penalty(H, AtA, rho, b: int, dtype, dev) -> torch.Tensor:
+    """The initial ADMM penalty, (b,): ``rho`` when given, else
+    ``tr(H)/tr(AᵀA)`` floored at 1e-8; a fresh tensor either way."""
+    if rho is None:
+        rho = (_trace(H) + 1e-12) / (_trace(AtA) + 1e-12)
+        rho = torch.clamp(rho, min=1e-8)
+    return torch.broadcast_to(torch.as_tensor(rho, dtype=dtype, device=dev),
+                              (b,)).clone()
+
+
+def _factorizer(H, AtA, r: int):
+    """``factor(rho)``: the g-update factor ``chol(H + ρAᵀA + 64·ε·tr/r·I)``
+    (b, r, r) at a (b,) penalty."""
+    eye_r = torch.eye(r, dtype=AtA.dtype, device=AtA.device)
+    # eps-level ridge on the g-update factor: with BOTH H and AtA rank-
+    # deficient (fewer sensors than modes AND a thin constraint set)
+    # H + ρAᵀA is singular; the 64·eps·tr/r shift keeps the factor finite
+    # far below the solver tolerance and is invisible when either has
+    # full rank
+    eps = torch.finfo(AtA.dtype).eps
+
+    def factor(rho):
+        M = H + rho[:, None, None] * AtA
+        L, _ = torch.linalg.cholesky_ex(
+            M + (64.0 * eps * (_trace(M) / r))[:, None, None] * eye_r)
+        return L
+    return factor
+
+
+def _cho_solve(L, rhs):
+    return torch.cholesky_solve(rhs[..., None], L)[..., 0]
+
+
+def _sqrt_rows(op: _Operator, n_rows) -> float:
+    return float(op.A.shape[0] if n_rows is None else n_rows) ** 0.5
+
+
+def _warm_start(c, op: _Operator, lo, hi, L):
+    """The ρ-regularized warm start ``g₀ = (H + ρAᵀA)⁻¹c``, ``z₀ =
+    clamp(A g₀)``, ``w₀ = 0``."""
+    g = _cho_solve(L, c)
+    z = torch.clamp(op.fwd(g), lo, hi)
+    return g, z, torch.zeros_like(z)
+
+
+def _budget_info(op: _Operator, g, lo, hi, sqrt_n: float,
+                 max_iter: int) -> ADMMInfo:
+    """The diagnostics of a fixed-ρ, ``tol == 0`` solve, which skipped the
+    per-iteration norms: one pass fills the last iterate's primal
+    residual; no z_{k-1} is kept, so the dual residual is NaN by
+    contract."""
+    b = g.shape[0]
+    Ag = op.fwd(g)
+    pri = op.norms(Ag - torch.clamp(Ag, lo, hi))[0] / sqrt_n
+    return ADMMInfo(
+        iterations=torch.full((b,), max_iter, dtype=torch.int32,
+                              device=g.device),
+        primal_residual=pri,
+        dual_residual=torch.full((b,), float("nan"), dtype=g.dtype,
+                                 device=g.device))
+
+
+def _unbatch(g, info: ADMMInfo, batched: bool):
+    if not batched:
+        return g[0], ADMMInfo(*(t[0] for t in info))
+    return g, info
+
+
 def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
           adapt_rho, batched, n_rows=None):
     """The ADMM iteration on a batch (see :func:`admm_box_qp`).  ``H``
@@ -249,39 +324,18 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
     count of the residual normalizations (default ``A.shape[0]``)."""
     b, r = c.shape
     dtype, dev = c.dtype, c.device
-    if rho is None:
-        rho = (_trace(H) + 1e-12) / (_trace(AtA) + 1e-12)
-        rho = torch.clamp(rho, min=1e-8)
-    rho = torch.broadcast_to(torch.as_tensor(rho, dtype=dtype, device=dev),
-                             (b,)).clone()
+    rho = _penalty(H, AtA, rho, b, dtype, dev)
     rho0 = rho
-    eye_r = torch.eye(r, dtype=dtype, device=dev)
-    # eps-level ridge on the g-update factor: with BOTH H and AtA rank-
-    # deficient (fewer sensors than modes AND a thin constraint set)
-    # H + ρAᵀA is singular; the 64·eps·tr/r shift keeps the factor finite
-    # far below the solver tolerance and is invisible when either has
-    # full rank
-    eps = torch.finfo(dtype).eps
+    factor = _factorizer(H, AtA, r)
     # relative convergence floor: residuals of an O(scale) problem stall
     # at ~eps·scale, which a purely absolute tol never reaches in fp32;
     # tol == 0 keeps the exact fixed budget
-    eps_rel = 10.0 * eps
+    eps_rel = 10.0 * torch.finfo(dtype).eps
     normA = torch.sqrt(_trace(AtA))
-    sqrt_n = float(op.A.shape[0] if n_rows is None else n_rows) ** 0.5
+    sqrt_n = _sqrt_rows(op, n_rows)
     sqrt_r = float(r) ** 0.5
 
-    def factor(rho):
-        M = H + rho[:, None, None] * AtA
-        L, _ = torch.linalg.cholesky_ex(
-            M + (64.0 * eps * (_trace(M) / r))[:, None, None] * eye_r)
-        return L
-
-    def solve(L, rhs):
-        return torch.cholesky_solve(rhs[..., None], L)[..., 0]
-
-    g = solve(factor(rho), c)                     # ρ-regularized warm start
-    z = torch.clamp(op.fwd(g), lo, hi)
-    w = torch.zeros_like(z)
+    g, z, w = _warm_start(c, op, lo, hi, factor(rho))
     alpha = float(over_relax)
     # fixed ρ: the factor is loop-invariant; with tol == 0 the residual
     # norms are dead too (they feed only the stop test and the ρ schedule)
@@ -301,7 +355,7 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
         if rec is not None:
             at = rec.begin("boxls.iter")
         fac = factor(rho) if adapt_rho else fixed_fac
-        g_n = solve(fac, c + rho[:, None] * op.adj(z - w))
+        g_n = _cho_solve(fac, c + rho[:, None] * op.adj(z - w))
         Ag = op.fwd(g_n)
         Ag_rel = alpha * Ag + (1.0 - alpha) * z
         z_n = torch.clamp(Ag_rel + w, lo, hi)
@@ -349,17 +403,27 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
             rec.end(at)
 
     if not need_norms:
-        k = torch.full((b,), max_iter, dtype=torch.int32, device=dev)
-        # one pass fills the diagnostics the skipped norms would have given
-        # (the last iterate's primal residual); no z_{k-1} is kept, so the
-        # dual residual is NaN by contract
-        Ag = op.fwd(g)
-        pri = op.norms(Ag - torch.clamp(Ag, lo, hi))[0] / sqrt_n
-        dua = torch.full((b,), float("nan"), dtype=dtype, device=dev)
-    info = ADMMInfo(iterations=k, primal_residual=pri, dual_residual=dua)
-    if not batched:
-        return g[0], ADMMInfo(*(t[0] for t in info))
-    return g, info
+        info = _budget_info(op, g, lo, hi, sqrt_n, max_iter)
+    else:
+        info = ADMMInfo(iterations=k, primal_residual=pri, dual_residual=dua)
+    return _unbatch(g, info, batched)
+
+
+def _solve(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
+           adapt_rho, batched, n_rows=None):
+    """One batched solve, in one ``boxls.admm`` span: by the CUDA kernel
+    pair of :mod:`.admm_cuda` where its predicate
+    (:func:`.admm_cuda.takes`) holds, counted in ``boxls.kernel_solves``,
+    else by :func:`_admm`."""
+    from . import admm_cuda
+    with _log.span("boxls.admm"):
+        if admm_cuda.takes(c, op, tol):
+            _log.count("boxls.kernel_solves")
+            return admm_cuda.admm_fused(H, c, op, lo, hi, AtA, rho,
+                                        max_iter, over_relax, adapt_rho,
+                                        batched, n_rows)
+        return _admm(H, c, op, lo, hi, AtA, rho, max_iter, tol, over_relax,
+                     adapt_rho, batched, n_rows)
 
 
 def _prepare(H, c, A, lo, hi, AtA):
@@ -425,9 +489,8 @@ def admm_box_qp(H, c, A, lo, hi, AtA=None, rho=None, max_iter: int = 2000,
         AtA = A.T @ A if axis is None else axis.sum(A.T @ A)
     b = _batch_size((c, 2), (H, 3), (lo, 2), (hi, 2), (AtA, 3))
     c = torch.broadcast_to(c, (b, c.shape[-1]))
-    with _log.span("boxls.admm"):
-        return _admm(H, c, _Operator(A, axis=axis), lo, hi, AtA, rho,
-                     max_iter, tol, over_relax, adapt_rho, batched, n_rows)
+    return _solve(H, c, _Operator(A, axis=axis), lo, hi, AtA, rho, max_iter,
+                  tol, over_relax, adapt_rho, batched, n_rows)
 
 
 def box_constrained_lstsq(Theta, y, w_diag, A, lo, hi, AtA=None,
@@ -483,10 +546,9 @@ def box_constrained_map(mean, cov, A, lo, hi, AtA=None,
     if AtA is None:
         AtA = A.T @ A if axis is None else axis.sum(A.T @ A)
     ALtAL = L.mT @ (AtA @ L)
-    with _log.span("boxls.admm"):
-        u, info = _admm(H, c, _Operator(A, L, axis), lo - A_mu, hi - A_mu,
-                        ALtAL, None, max_iter, tol, over_relax, adapt_rho,
-                        True, n_rows)
+    u, info = _solve(H, c, _Operator(A, L, axis), lo - A_mu, hi - A_mu,
+                     ALtAL, None, max_iter, tol, over_relax, adapt_rho, True,
+                     n_rows)
     v = mean + (L @ u[..., None])[..., 0]
     if not batched:
         return v[0], ADMMInfo(*(t[0] for t in info))

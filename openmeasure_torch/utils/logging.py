@@ -32,6 +32,8 @@ The spans and counters of the port:
 - counter ``host_reads``: the reads of the card that the host waits on,
   counted where they are made (each ``torch.linalg.eigh`` on the card,
   whose error check reads its ``info``).
+- counter ``boxls.kernel_solves``: the ADMM solves that ran the CUDA
+  kernel pair of ``linalg/admm_cuda.py`` instead of the loop.
 """
 
 from __future__ import annotations
