@@ -11,24 +11,36 @@ and return tensors whose batch dims lead: ``y`` is ``(..., n)``, a noise
 is ``(...)`` (one value per model) or ``(..., n)`` (per point), and the
 result of a log-prob is ``(...)``.
 
-Which formulation runs is the JAX package's gate, keyed on the tensor: a
-CUDA fp32 batch with p ≤ 128 takes the explicit inverse (α = K⁻¹·resid,
-logdet from the kernel); a CPU tensor, float64 or p > 128 takes the
-Cholesky branch (:func:`..linalg.chol.cholesky_nan` + ``cholesky_solve``),
-as JAX does off the TPU; a failed factorization gives NaN there, as it
-does in JAX.
+Which formulation the log-prob core (training) runs is the JAX package's
+gate, keyed on the tensor: a CUDA fp32 batch with p ≤ 128 takes the
+explicit inverse (α = K⁻¹·resid, logdet from the kernel); a CPU tensor,
+float64 or p > 128 takes the Cholesky branch
+(:func:`..linalg.chol.cholesky_nan` + ``cholesky_solve``), as JAX does off
+the TPU; a failed factorization gives NaN there, as it does in JAX.  The
+posterior (:func:`gp_posterior`) takes the Cholesky route on every device:
+its variance kss − ‖L⁻¹ksᵀ‖² comes from a triangular solve, where the JAX
+package's TPU route takes kss − Σ(Ks K⁻¹ ∘ Ks) from the explicit inverse,
+whose cancellation loses the small variances in fp32.
+
+While the recorder of :mod:`..utils.logging` is on, the trainer records a
+``gp.adam`` span holding one ``gp.iter`` an Adam iteration and counts each
+read of its stop test on the card in ``host_reads``; a posterior is one
+``gp.posterior`` span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from . import kernels as K
+from ..linalg import chol_cuda as _chol_cuda
 from ..linalg.chol import (chol_fits, chol_inv_logdet, cholesky_nan,
                            kernel_path_wanted)
+from ..utils import logging as _log
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -145,6 +157,7 @@ def _kernel_diag(kernel_spec, kparams: Dict, X: torch.Tensor,
     return kernel_spec(kp, Xp, Xp)[..., 0, 0]
 
 
+@_log.spanned("gp.posterior")
 def gp_posterior(mean_spec, kernel_spec, params: Dict, noise: torch.Tensor,
                  X: torch.Tensor, y: torch.Tensor, Xs: torch.Tensor,
                  include_noise: bool = True,
@@ -163,20 +176,14 @@ def gp_posterior(mean_spec, kernel_spec, params: Dict, noise: torch.Tensor,
     kss = _kernel_diag(kernel_spec, params["kernel"], Xs, nbatch)
     mu = mean_spec(params["mean"], X)
     mus = mean_spec(params["mean"], Xs)
-    if _use_kernel_path(n, Kn.dtype, Kn.device):
-        # explicit inverse from the kernel; var via diag(Ks K⁻¹ Ksᵀ),
-        # round-off only, guarded at 0
-        Kinv, _ = chol_inv_logdet(Kn + _jitter(Kn.dtype) * _eye(n, Kn))
-        alpha = (Kinv @ (y - mu)[..., :, None])[..., 0]
-        mean_s = mus + (Ks @ alpha[..., :, None])[..., 0]
-        W = Ks @ Kinv
-        var_s = torch.clamp(kss - torch.sum(W * Ks, dim=-1), min=0.0)
-    else:
-        L = cholesky_nan(Kn + _jitter(Kn.dtype) * _eye(n, Kn))
-        alpha = torch.cholesky_solve((y - mu)[..., :, None], L)[..., 0]
-        mean_s = mus + (Ks @ alpha[..., :, None])[..., 0]
-        v = torch.linalg.solve_triangular(L, Ks.mT, upper=False)
-        var_s = torch.clamp(kss - torch.sum(v * v, dim=-2), min=0.0)
+    # var = kss − ‖L⁻¹ksᵀ‖²: the subtracted sum of squares carries
+    # round-off of order u·kss, where Σ(Ks K⁻¹ ∘ Ks) from an explicit
+    # inverse carries cond(K)·u·kss; guarded at 0
+    L = cholesky_nan(Kn + _jitter(Kn.dtype) * _eye(n, Kn))
+    alpha = torch.cholesky_solve((y - mu)[..., :, None], L)[..., 0]
+    mean_s = mus + (Ks @ alpha[..., :, None])[..., 0]
+    v = torch.linalg.solve_triangular(L, Ks.mT, upper=False)
+    var_s = torch.clamp(kss - torch.sum(v * v, dim=-2), min=0.0)
     if include_noise:
         if pred_noise is None:
             # a per-training-point noise vector has no alignment with the
@@ -211,6 +218,7 @@ class TrainResult(NamedTuple):
     iterations: torch.Tensor  # per-model iteration count (int32)
 
 
+@_log.spanned("gp.adam")
 def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
                     max_iter: int = 1000, rel_error: float = 1e-5,
                     verbose: bool = False, unroll: int = 4,
@@ -235,7 +243,12 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     be no-ops), so results do not depend on ``unroll``.
 
     ``value_and_grad(params) -> (losses (B,), grads dict)`` replaces
-    autograd of ``sum(loss_fn)`` (the closed-form oracles below).
+    autograd of ``sum(loss_fn)`` (the closed-form oracles below).  Where
+    it says that its iteration can be captured (``value_and_grad
+    .capturable``: the oracles below on the kernel path, a CUDA fp32 batch
+    with p ≤ 128, whose every operation launches without a host read or
+    an allocation of a library's own), the iteration after the first
+    block is a replay of one captured as a CUDA graph, on a side stream.
     ``verbose`` is accepted for signature parity.
 
     ``stop_axis`` (a :class:`..parallel._comm.Axis`) makes the stop test
@@ -245,15 +258,14 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     are those of the unsharded call."""
     del verbose
     b1, b2, eps = 0.9, 0.999, 1e-8
-    leaves0 = tree_leaves(params0)
-    params = [t.detach().clone() for t in leaves0]
-    mu = [torch.zeros_like(t) for t in params]
-    nu = [torch.zeros_like(t) for t in params]
+    params = [t.detach().clone() for t in tree_leaves(params0)]
     B = params[0].shape[0]
     like = params[0]
-    loss_old = torch.full((B,), 1e10, dtype=like.dtype, device=like.device)
-    conv = torch.zeros(B, dtype=torch.bool, device=like.device)
-    iters = torch.zeros(B, dtype=torch.int32, device=like.device)
+    state = (params, [torch.zeros_like(t) for t in params],
+             [torch.zeros_like(t) for t in params],
+             torch.full((B,), 1e10, dtype=like.dtype, device=like.device),
+             torch.zeros(B, dtype=torch.bool, device=like.device),
+             torch.zeros(B, dtype=torch.int32, device=like.device))
 
     def grads_at(leaves):
         tree = _unflatten_like(params0, leaves)
@@ -268,35 +280,118 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
              for t, gi in zip(leaves, g)]
         return losses.detach(), g
 
-    def all_stopped() -> bool:
+    def step(state, c1, c2):
+        """One Adam iteration: ``state`` (params, μ, ν, last losses,
+        converged, iterations) to the next; ``c1``, ``c2`` the bias
+        corrections."""
+        params, mu, nu, loss_old, conv, iters = state
+        losses, grads = grads_at(params)
+        e = torch.abs(losses - loss_old)
+        frozen = conv
+        new, mu_n, nu_n = [], [], []
+        for p_, g, m, v in zip(params, grads, mu, nu):
+            m = (1.0 - b1) * g + b1 * m
+            v = (1.0 - b2) * (g * g) + b2 * v
+            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+            p_new = p_ + (-lr) * upd
+            mask = frozen.reshape(frozen.shape + (1,) * (p_.ndim - 1))
+            new.append(torch.where(mask, p_, p_new))
+            mu_n.append(m)
+            nu_n.append(v)
+        return (new, mu_n, nu_n, torch.where(frozen, loss_old, losses),
+                conv | (e <= rel_error), torch.where(frozen, iters, iters + 1))
+
+    def all_stopped(conv) -> bool:
+        if conv.is_cuda:
+            _log.count("host_reads")
         done = bool(torch.all(conv))
         return done if stop_axis is None else stop_axis.all(done)
 
-    count, j = 0, 0
-    while j < max_iter and not all_stopped():
-        for _ in range(unroll):
-            if j >= max_iter:
-                break
-            losses, grads = grads_at(params)
-            e = torch.abs(losses - loss_old)
-            count += 1
-            c1 = 1.0 - b1 ** count
-            c2 = 1.0 - b2 ** count
-            frozen = conv
-            new = []
-            for i, (p_, g) in enumerate(zip(params, grads)):
-                mu[i] = (1.0 - b1) * g + b1 * mu[i]
-                nu[i] = (1.0 - b2) * (g * g) + b2 * nu[i]
-                upd = (mu[i] / c1) / (torch.sqrt(nu[i] / c2) + eps)
-                p_new = p_ + (-lr) * upd
-                mask = frozen.reshape(frozen.shape + (1,) * (p_.ndim - 1))
-                new.append(torch.where(mask, p_, p_new))
-            params = new
-            conv = conv | (e <= rel_error)
-            loss_old = torch.where(frozen, loss_old, losses)
-            iters = torch.where(frozen, iters, iters + 1)
-            j += 1
+    # on the card the closed-form oracle's iteration is replayed as a CUDA
+    # graph after a first block run eagerly: the ~120 launches an eager
+    # iteration enqueues take the host ~10× the card's time for them
+    captures = getattr(value_and_grad, "capturable", False)
+    rec = _log.recorder()        # taken once: each iteration's span inline
+    count, j, graph = 0, 0, None
+    with _side_stream(like) if captures else contextlib.nullcontext():
+        while j < max_iter and not all_stopped(state[4]):
+            for _ in range(unroll):
+                if j >= max_iter:
+                    break
+                if rec is not None:
+                    at = rec.begin("gp.iter")
+                count += 1
+                c1 = 1.0 - b1 ** count
+                c2 = 1.0 - b2 ** count
+                if graph is None:
+                    state = step(state, c1, c2)
+                else:
+                    graph.replay(c1, c2)
+                j += 1
+                if rec is not None:
+                    rec.end(at)
+            if captures and graph is None:
+                graph = _StepGraph(step, state)
+                state = graph.state
+    params, _, _, loss_old, _, iters = state
     return TrainResult(_unflatten_like(params0, params), loss_old, iters)
+
+
+class _StepGraph:
+    """One iteration of :func:`adam_early_stop` captured as a CUDA graph
+    over a static ``state``, which each :meth:`replay` advances in place;
+    the bias corrections are device scalars filled before each replay.
+    ``launches`` counts the ``csrc/chol.cu`` launches a replay makes, added
+    to the kernel's launch counters at each replay."""
+
+    def __init__(self, step: Callable, state):
+        self.state = state
+        like = state[0][0]
+        self.c = [torch.zeros((), dtype=like.dtype, device=like.device)
+                  for _ in range(2)]
+        flat = _flat_state(state)
+        before = _chol_cuda.chol_inv_logdet_cuda.captured
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.capture_begin()
+        try:
+            out = _flat_state(step(state, *self.c))
+            for s, o in zip(flat, out):
+                s.copy_(o)
+        finally:
+            self.graph.capture_end()
+        self.launches = _chol_cuda.chol_inv_logdet_cuda.captured - before
+
+    def replay(self, c1: float, c2: float) -> None:
+        self.c[0].fill_(c1)
+        self.c[1].fill_(c2)
+        self.graph.replay()
+        _chol_cuda.count_launches(self.launches)
+
+
+# one side stream a card, made once: torch keeps a cuBLAS workspace (32 MB
+# on an H100) for every stream that runs a product, so a fresh stream a
+# training would hold one for each of the 32 streams of torch's pool
+_SIDE: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+@contextlib.contextmanager
+def _side_stream(like: torch.Tensor):
+    """The side stream of ``like``'s card for a loop that captures (a
+    graph is not captured on the default stream), ordered after the work
+    enqueued before the block and before the work enqueued after it."""
+    main = torch.cuda.current_stream(like.device)
+    side = _SIDE.get(like.device)
+    if side is None:
+        side = _SIDE[like.device] = torch.cuda.Stream(like.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        yield
+    main.wait_stream(side)
+
+
+def _flat_state(state) -> list:
+    params, mu, nu, *rest = state
+    return [*params, *mu, *nu, *rest]
 
 
 # --------------------------------------------------------------------- #
@@ -356,6 +451,7 @@ def make_single_task_value_and_grad(mean_spec, kernel_spec, likelihood_spec,
         grads["likelihood"] = lgrad
         return -lp / p, grads
 
+    batched.capturable = _use_kernel_path(p, X.dtype, X.device)
     return batched
 
 
@@ -504,6 +600,7 @@ def make_multitask_value_and_grad(mean_spec, kernel_spec, likelihood_spec,
         loss = -torch.sum(lps) / (p * r)
         return loss[None], {"tasks": task_grads, "likelihood": lgrad}
 
+    joint.capturable = _use_kernel_path(p, X.dtype, X.device)
     return joint
 
 

@@ -60,6 +60,7 @@ from ..core.host64 import tree_f64
 from ..linalg import boxls as _boxls
 from ..linalg import svd as _svd
 from ..rom.rom import ROM
+from ..utils import logging as _log
 from . import exact_gp as E
 from . import kernels as K
 
@@ -140,6 +141,7 @@ class GPR(ROM):
         self.P_scl = P_scl
         return P0
 
+    @_log.spanned("gpr.fit")
     def fit(self, scaleX_type: str = "std", scaleP_type: str = "std",
             axis_cnt: Optional[int] = 1, select_modes: str = "variance",
             n_modes=99, verbose: bool = False, basis=None, config=None,
@@ -228,6 +230,7 @@ class GPR(ROM):
             p["likelihood"] = likelihood.init_params(**like)
         return p
 
+    @_log.spanned("gpr.train")
     def train(self, mean=None, kernel=None, likelihood=None,
               max_iter: int = 1000, rel_error: float = 1e-5, lr: float = 0.1,
               verbose: bool = False, config=None, engine: str = "device"):
@@ -353,6 +356,7 @@ class GPR(ROM):
                 def vag(pb):
                     losses, grads = vag_raw(E.tree_map(lambda x: x[0], pb))
                     return losses, E.tree_map(lambda g: g[None], grads)
+                vag.capturable = vag_raw.capturable
             res = E.adam_early_stop(loss_fn, params_b, lr=self.lr,
                                     max_iter=self.max_iter,
                                     rel_error=self.rel_error,
@@ -415,6 +419,7 @@ class GPR(ROM):
             parts.append(_boxls.LinearConstraints(S[rows_t, :], v0, v0))
         return parts
 
+    @_log.spanned("gpr.predict")
     def predict(self, P_star, problem_dict=None, limits=None, bc=None,
                 constraints=None, **kwargs):
         """Posterior POD coefficients at new parameters ``P_star`` (n_p, d)
@@ -488,6 +493,11 @@ class GPR(ROM):
 
         sig = tree_f64(self.Sigma_r) if host else self.Sigma_r
         return V_pred * sig[None, :], V_sigma * sig[None, :]
+
+    @_log.spanned("gpr.reconstruct")
+    def reconstruct(self, Ar, sampling=None):
+        """:meth:`ROM.reconstruct`, in one ``gpr.reconstruct`` span."""
+        return super().reconstruct(Ar, sampling)
 
     # ------------------------------------------------------------------ #
     # Update
@@ -743,6 +753,7 @@ class PIGPR(GPR):
         return MultitaskPosterior(mean=means.T,
                                   stddev=torch.sqrt(variances).T)
 
+    @_log.spanned("gpr.train")
     def train(self, mean=None, kernel=None, likelihood=None,
               max_iter: int = 1000, rel_error: float = 1e-5, lr: float = 0.1,
               verbose: bool = False, loss_dict=None):

@@ -15,6 +15,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..utils import logging as _log
+
 P_MAX = 128     # size cap of the kernel (the TPU kernel's unroll cap)
 STAMPS = ("CHOL_STAMPS",)   # the defines of the phase-stamping build
 
@@ -80,14 +82,29 @@ def chol_inv_logdet_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     Raises on anything the kernel does not take (a CPU tensor, another
     dtype, p outside [1, 128], an empty batch) and when the launch is
-    refused.  ``chol_inv_logdet_cuda.launches`` counts the launches."""
+    refused.  ``chol_inv_logdet_cuda.launches`` counts the launches, and
+    so does the recorder's counter ``chol.kernel_launches`` while it is
+    on; a call while the stream captures a CUDA graph launches nothing
+    and is counted in ``chol_inv_logdet_cuda.captured`` instead, for the
+    graph's replays to count (:func:`count_launches`)."""
     _check(K)
     out = _launch(_library(), K)
-    chol_inv_logdet_cuda.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        chol_inv_logdet_cuda.captured += 1
+    else:
+        count_launches(1)
     return out
 
 
 chol_inv_logdet_cuda.launches = 0
+chol_inv_logdet_cuda.captured = 0
+
+
+def count_launches(n: int) -> None:
+    """Count ``n`` launches of the kernel: the calls that made them, or
+    the replays of a graph that captured them."""
+    chol_inv_logdet_cuda.launches += n
+    _log.count("chol.kernel_launches", n)
 
 
 def chol_phase_stamps(K: torch.Tensor

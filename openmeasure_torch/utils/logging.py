@@ -29,16 +29,25 @@ The spans and counters of the port:
 - ``fit.spr_end_to_end`` (root of a fit), ``fit.scale``, ``fit.place``,
   ``fit.solve`` (``pipelines.py``); ``svd.gram``, ``svd.eigh``,
   ``svd.panel`` (``linalg/svd.py``);
+- ``gpr.fit``, ``gpr.train``, ``gpr.predict``, ``gpr.reconstruct`` (the
+  methods of ``gp/gpr.py``'s ``GPR``; ``train`` also of ``PIGPR``);
+  ``gp.adam`` (the Adam loop of ``gp/exact_gp.py``) holding one
+  ``gp.iter`` an Adam iteration; ``gp.posterior`` (each posterior, inside
+  ``gpr.predict`` and a ``GPRSensor`` request);
 - counter ``host_reads``: the reads of the card that the host waits on,
   counted where they are made (each ``torch.linalg.eigh`` on the card,
-  whose error check reads its ``info``).
+  whose error check reads its ``info``; each stop test of the Adam loop
+  on the card, one a block of ``unroll`` iterations).
 - counter ``boxls.kernel_solves``: the ADMM solves that ran the CUDA
   kernel pair of ``linalg/admm_cuda.py`` instead of the loop.
+- counter ``chol.kernel_launches``: the launches of ``csrc/chol.cu``
+  (``linalg/chol_cuda.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import time
@@ -138,6 +147,18 @@ def span(name: str):
     """A span around the ``with`` block while the recorder is on; off,
     the shared no-op context."""
     return _OFF if _REC is None else _Spanned(_REC, name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is one span ``name`` while the
+    recorder is on."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 def count(name: str, n: int = 1) -> None:

@@ -13,7 +13,9 @@ kernel's bars (``tests/test_tpu_kernels.py``); against
 kernel's fp32 operations in the kernel's order, its Gram included (a
 fixed-order sequential sum), each separately rounded.  On matrices built
 like the GP trainer's, too ill-conditioned for the fixed bars, the kernel
-is held against a float64 Cholesky within p · cond₂(K) · u.
+is held against a float64 Cholesky within p · cond₂(K) · u.  The GP
+trainer's iteration, replayed from a CUDA graph on the card, is held bit
+for bit to the same iterations run as plain launches.
 """
 
 import numpy as np
@@ -218,3 +220,51 @@ def test_gp_paths_on_card_go_through_the_kernel(card):
     a, s = g.predict(d["P_test"])
     assert TCC.chol_inv_logdet_cuda.launches > before
     assert bool(torch.isfinite(g.reconstruct(a)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gpr_type", ["SingleTask", "MultiTask"])
+def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type):
+    """On the card the Adam loop replays its iteration as a CUDA graph
+    after a first eager block: the trained state equals, bit for bit, the
+    same static-state iterations run eagerly (each replay's step run as
+    plain launches), and the kernel's launch counter counts the replays'
+    launches, one an iteration."""
+    from openmeasure_torch import GPR
+    from openmeasure_torch.datasets.synthetic import make_flame_dataset
+    from openmeasure_torch.gp import exact_gp as E
+
+    class Eager(E._StepGraph):
+        def __init__(self, step, state):
+            self.step, self.state, self.launches = step, state, 0
+            self.c = [torch.zeros((), dtype=state[3].dtype, device=card)
+                      for _ in range(2)]
+
+        def replay(self, c1, c2):
+            self.c[0].fill_(c1)
+            self.c[1].fill_(c2)
+            out = E._flat_state(self.step(self.state, *self.c))
+            for s, o in zip(E._flat_state(self.state), out):
+                s.copy_(o)
+
+    d = make_flame_dataset(n_cells=2000, n_features=3, m_train=20, m_test=3,
+                           dtype=np.float32)
+
+    def trained():
+        g = GPR(d["X_train"], 3, d["xyz"], d["P_train"], gpr_type)
+        g.fit(select_modes="number", n_modes=6)
+        before = TCC.chol_inv_logdet_cuda.launches
+        g.train(max_iter=203)
+        torch.cuda.synchronize()
+        return g, TCC.chol_inv_logdet_cuda.launches - before
+
+    g_graph, launched = trained()
+    monkeypatch.setattr(E, "_StepGraph", Eager)
+    g_eager, _ = trained()
+    for a, b in zip(E.tree_leaves(g_graph.params),
+                    E.tree_leaves(g_eager.params)):
+        assert torch.equal(a, b)
+    assert torch.equal(g_graph._final_loss, g_eager._final_loss)
+    assert torch.equal(g_graph._iterations, g_eager._iterations)
+    steps = int(g_graph._iterations.max())
+    assert launched == min(-(-steps // 4) * 4, 203)

@@ -1,7 +1,7 @@
 """Serving on the card (``openmeasure_torch/serving.py``): the fp32 COLS
 ``SoftSensor`` against a float64 sensor of the same model, a fixed-budget
-batch with no read back to the host, and a ``GPRSensor`` request through
-the chol kernel (``csrc/chol.cu``).
+batch with no read back to the host, and a ``GPRSensor`` request's σ
+against float64, with no launch of the chol kernel (``csrc/chol.cu``).
 
 Every test here needs a CUDA card and skips without one; this file imports
 neither JAX nor the JAX package, so on a machine with a card it runs as::
@@ -15,7 +15,9 @@ carries, scaled by the (r, r) solves' conditioning); the fields within
 1e-3 of each feature's span of the limits (the primal residual left after
 the budget).  With the limits padded inward, so that field entries reach
 them, the float64 sensor's fields stray past them too, and the fp32 fields
-may stray by that excursion plus 1e-3.
+may stray by that excursion plus 1e-3.  A ``GPRSensor``'s σ within 5e-4
+of the largest float64 σ: ``tests/test_torch_gp_posterior.py``'s bound for
+the posterior's triangular solve.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from openmeasure_torch.datasets.synthetic import make_flame_dataset
 from openmeasure_torch.linalg import chol_cuda
 
 COEF_REL, VIOL_REL = 2e-3, 1e-3
+GP_SIGMA_REL = 5e-4
 
 
 @pytest.fixture
@@ -105,16 +108,27 @@ def test_fixed_budget_batch_reads_nothing_back(card, medium):
 
 
 @pytest.mark.cuda
-def test_gpr_sensor_requests_launch_the_chol_kernel(card, medium):
+def test_gpr_sensor_sigma_against_float64_without_chol(card, medium):
+    """A ``GPRSensor`` request on the card takes its posterior by a
+    Cholesky factor and triangular solves: no launch of ``csrc/chol.cu``,
+    and σ within ``GP_SIGMA_REL`` of the float64 posterior of the same
+    trained model (``engine='host'``), as ``tests/test_torch_gp_posterior.py``
+    bounds it; the coefficients equal ``GPR.predict``'s to 1e-5."""
     gpr = GPR(medium["X_train"], 9, medium["xyz"], medium["P_train"],
               gpr_type="MultiTask")
     gpr.fit(select_modes="number", n_modes=6)
     gpr.train(max_iter=50)
     sensor = GPRSensor.from_gpr(gpr)
     before = chol_cuda.chol_inv_logdet_cuda.launches
-    fields, A, _ = sensor(medium["P_test"])
+    for _ in range(3):
+        fields, A, A_sigma = sensor(medium["P_test"])
     torch.cuda.synchronize()
-    assert chol_cuda.chol_inv_logdet_cuda.launches == before + 1
+    assert chol_cuda.chol_inv_logdet_cuda.launches == before
     A_ref, _ = gpr.predict(medium["P_test"])
     assert float((A - A_ref).abs().max() / A_ref.abs().max()) <= 1e-5
     assert tuple(fields.shape) == (4, medium["X_train"].shape[0])
+    gpr.engine = "host"
+    _, s64 = gpr.predict(medium["P_test"])
+    assert s64.dtype == torch.float64 and A_sigma.dtype == torch.float32
+    gap = float((A_sigma.cpu().double() - s64).abs().max() / s64.abs().max())
+    assert gap <= GP_SIGMA_REL, gap

@@ -1,13 +1,14 @@
 """The port's span and counter recorder (``openmeasure_torch/utils/
 logging.py``) at the layer boundaries of a served COLS batch
-(``SoftSensor.predict_batch``) and of the fit (``spr_end_to_end``): off,
-it records nothing and reads no clock; on, the spans nest as the layers
-call each other, share their root's call id, lie on ``torch.profiler``'s
-clock, and leave the outputs as they were.
+(``SoftSensor.predict_batch``), of the fit (``spr_end_to_end``) and of the
+GP ROM flow (``GPR.fit`` → ``train`` → ``predict`` → ``reconstruct``):
+off, it records nothing and reads no clock; on, the spans nest as the
+layers call each other, share their root's call id, lie on
+``torch.profiler``'s clock, and leave the outputs as they were.
 
-CPU at tiny sizes; the one ``cuda`` test holds the ``host_reads``
-counter of a fit on the card to the reads that ``torch.cuda``'s sync
-debug mode reports.  This file imports neither JAX nor the JAX package,
+CPU at tiny sizes; the ``cuda`` tests hold the ``host_reads`` counter of
+a fit and of a GP training on the card to the reads that ``torch.cuda``'s
+sync debug mode reports.  This file imports neither JAX nor the JAX package,
 so on a machine with a card it runs as::
 
     python -m pytest tests/test_torch_tracing.py --noconftest -q
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from openmeasure_torch import SPR, SoftSensor
+from openmeasure_torch import GPR, SPR, SoftSensor
 from openmeasure_torch.pipelines import spr_end_to_end
 from openmeasure_torch.utils import logging as tlog
 
@@ -58,6 +59,25 @@ def _fit(**kw):
                           device="cpu", **kw)
 
 
+def _gpr(device="cpu", dtype=torch.float64):
+    """A fitted tiny GP ROM: 8 snapshots at 8 points of (D, H2, φ), 4
+    modes, and 2 held-out points."""
+    X = _snapshots(5, device=device).to(dtype)
+    rng = np.random.default_rng(5)
+    xyz = rng.random((N_POINTS, 2))
+    P = torch.as_tensor(rng.random((M, 3)), dtype=dtype, device=device)
+    gpr = GPR(X, N_FEATURES, xyz, P, device=device)
+    gpr.fit(select_modes="number", n_modes=R)
+    return gpr, P[:2] + 0.05
+
+
+def _gpr_flow(max_iter):
+    gpr, Pt = _gpr()
+    gpr.train(max_iter=max_iter, rel_error=0.0)
+    A, A_sigma = gpr.predict(Pt)
+    return A, A_sigma, gpr.reconstruct(A)
+
+
 def _children(rec, i):
     return [j for j, s in enumerate(rec.spans) if s.parent == i]
 
@@ -74,7 +94,7 @@ def _check_tree(rec):
             assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
 
 
-@pytest.mark.parametrize("flow", ["predict_batch", "spr_end_to_end"])
+@pytest.mark.parametrize("flow", ["predict_batch", "spr_end_to_end", "gpr"])
 def test_off_records_nothing(flow, monkeypatch):
     """Off: no clock read, no span begun, no counter, and every ``span``
     is the one shared no-op context."""
@@ -87,6 +107,8 @@ def test_off_records_nothing(flow, monkeypatch):
     if flow == "predict_batch":
         sensor, Y, S = _sensor(3)
         sensor.predict_batch(Y, S)
+    elif flow == "gpr":
+        _gpr_flow(5)
     else:
         _fit()
     assert tlog.recorder() is None
@@ -130,11 +152,46 @@ def test_fit_stage_spans(refine):
     assert rec.counters == {}
 
 
-@pytest.mark.parametrize("flow", ["predict_batch", "spr_end_to_end"])
+@pytest.mark.parametrize("max_iter", [1, 4, 10])
+def test_gpr_flow_spans(max_iter):
+    """A GP ROM flow: one root span a method, in order; ``gpr.train``
+    holds ``gp.adam``, which holds one ``gp.iter`` an Adam iteration
+    (``rel_error = 0``: every model runs all ``max_iter``);
+    ``gpr.predict`` holds one ``gp.posterior``.  On the CPU neither
+    ``host_reads`` nor ``chol.kernel_launches``: no card is read, no
+    kernel launched."""
+    gpr, Pt = _gpr()
+    with tlog.recording() as rec:
+        gpr.fit(select_modes="number", n_modes=R)
+        gpr.train(max_iter=max_iter, rel_error=0.0)
+        A, _ = gpr.predict(Pt)
+        gpr.reconstruct(A)
+    _check_tree(rec)
+    roots = [i for i, s in enumerate(rec.spans) if s.parent < 0]
+    assert [rec.spans[i].name for i in roots] == [
+        "gpr.fit", "gpr.train", "gpr.predict", "gpr.reconstruct"]
+    fit, train, predict, rebuild = roots
+    svd = [rec.spans[j].name for j in _children(rec, fit)]
+    assert svd and svd == ["svd.gram", "svd.eigh", "svd.panel"] * (
+        len(svd) // 3)
+    (adam,) = _children(rec, train)
+    assert rec.spans[adam].name == "gp.adam"
+    iters = [rec.spans[j].name for j in _children(rec, adam)]
+    assert iters == ["gp.iter"] * max_iter
+    assert gpr._iterations.tolist() == [max_iter] * R
+    assert [rec.spans[j].name for j in _children(rec, predict)] == \
+        ["gp.posterior"]
+    assert _children(rec, rebuild) == []
+    assert rec.counters == {}
+
+
+@pytest.mark.parametrize("flow", ["predict_batch", "spr_end_to_end", "gpr"])
 def test_recorded_outputs_identical(flow):
     if flow == "predict_batch":
         sensor, Y, S = _sensor(5)
         run = lambda: sensor.predict_batch(Y, S)          # noqa: E731
+    elif flow == "gpr":
+        run = lambda: _gpr_flow(6)                        # noqa: E731
     else:
         run = _fit
     plain = run()
@@ -200,3 +257,35 @@ def test_fit_host_reads_on_card():
             torch.cuda.set_sync_debug_mode(0)
         syncs = [w for w in caught if "synchroniz" in str(w.message)]
         assert rec.counters.get("host_reads", 0) == len(syncs) == 1 + refine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_iter, rel_error", [(10, 0.0), (1000, 1e-5)])
+def test_gp_training_host_reads_on_card(max_iter, rel_error):
+    """On the card, a GP training's ``host_reads`` are its Adam loop's
+    stop tests, one a block of 4 iterations and one more where every
+    model stopped before ``max_iter``: as many as the sync debug mode
+    warns of; ``chol.kernel_launches`` is one an iteration, and a
+    ``predict`` launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: host reads are reads of the card")
+    gpr, Pt = _gpr(torch.device("cuda"), torch.float32)
+    gpr.train(max_iter=8, rel_error=rel_error)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tlog.recording() as rec:
+            warnings.simplefilter("always")
+            gpr.train(max_iter=max_iter, rel_error=rel_error)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    steps = sum(s.name == "gp.iter" for s in rec.spans)
+    slowest = int(gpr._iterations.max())
+    reads = -(-steps // 4) + (slowest < max_iter)
+    assert rec.counters["host_reads"] == len(syncs) == reads
+    assert rec.counters["chol.kernel_launches"] == steps
+    with tlog.recording() as rec:
+        gpr.predict(Pt)
+    assert "chol.kernel_launches" not in rec.counters
