@@ -103,7 +103,10 @@ read through their strides; the chol kernel is held bit-equal to
 float64 Cholesky within a bar scaled by their condition number; on the
 co-kriging θ search's correlation matrices (screening and Newton batches,
 some of which do not factor in fp32) it must equal the plain version where
-finite, with NaN in the same places.
+finite, with NaN in the same places; the fused GP step kernel
+(``csrc/gp_step.cu``) is held to its plain version at (14, 41) and an Adam
+iteration of its CUDA graph timed beside the oracle's graph-replayed torch
+step.
 It checks each reconstruction's NRMSE, shows by the launch counters that
 each entry point ran through its kernel, and times the pipelines, the
 serving batches and the QRCP kernel with CUDA events and the chol kernel
@@ -121,6 +124,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -151,6 +155,9 @@ NORMS_REL_TOL = 1e-4
 # fixed-order sequential sum) it must be EQUAL, bit for bit
 CHOL_KINV_REL = 5e-6
 CHOL_LOGDET_ABS = 5e-3
+# the fused GP step against its plain version, one step from the same state
+# and K⁻¹: fp32 sums in another order, with FMA (tests/test_torch_gp_step_cuda)
+GP_STEP_REL = 1e-5
 # the main path's matrices are trained GP kernel matrices (noise ≥ 1e-4
 # beside eigenvalues of order p), too ill-conditioned for those bars in
 # fp32: there the kernel and the fp32 Cholesky formulation are each held
@@ -472,6 +479,26 @@ def chol_bound_ms(B: int, p: int):
     fp32 peak."""
     return ((2 * B * p * p + B) * 4 / HBM_BYTES_PER_S * 1e3,
             chol_ops(B, p) / FP32_FLOPS * 1e3)
+
+
+def gp_step_ops(B: int, p: int, nls: int) -> int:
+    """The fused GP step's operations: α = K⁻¹·resid (2p² a model), and
+    per (i, j) element the step's M, d², Matérn-5/2 profile and its
+    derivative and the sums (15 + 4·nls) and the build's d², profile and
+    scale (7 + 2·nls)."""
+    return B * p * p * (2 + 22 + 6 * nls)
+
+
+def gp_step_bound_ms(B: int, p: int, nls: int, n_par: int):
+    """(bytes, operations) lower bounds in ms of a fused GP step launch:
+    K⁻¹, logdet, the targets, the squared distances and the residual read,
+    the next K and residual written, the parameters, moments, loss (fp32)
+    and counts (int32) read and written, the stop flags (1 byte) read and
+    written, each once; the operations at the fp32 peak."""
+    floats = (2 * B * p * p + nls * p * p + 3 * B * p + B
+              + 2 * (3 * B * n_par + B + 2 * B))
+    return ((4 * floats + 2 * B) / HBM_BYTES_PER_S * 1e3,
+            gp_step_ops(B, p, nls) / FP32_FLOPS * 1e3)
 
 
 def mfk_problem(K=8, n_lf=40, n_hf=15, n_test=25, d=2, seed=3):
@@ -1829,6 +1856,7 @@ def main() -> int:
     from openmeasure_torch.core import scaling
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
     from openmeasure_torch.gp import exact_gp
+    from openmeasure_torch.gp import gp_step as gp_step_mod
     from openmeasure_torch.linalg import admm_cuda as admm_k
     from openmeasure_torch.linalg import boxls as boxls_mod
     from openmeasure_torch.linalg import chol as chol_plain
@@ -2273,8 +2301,8 @@ def main() -> int:
                  f"({B}, {p}, {p})")
 
     # ---- GP ROM: the main path, each entry point with the counter reset --
-    log("phase 6: GP ROM main path, flagship (counter reset before each "
-        "entry point)")
+    log("phase 6: GP ROM main path, flagship (the chol.cu and gp_step.cu "
+        "launch counters reset before each entry point)")
     Pf, Ptf = flag["P_train"], flag["P_test"]
     Tf64 = torch.as_tensor(flag["X_test"], dtype=torch.float64)
 
@@ -2284,6 +2312,19 @@ def main() -> int:
         sync()
         return out, chol_kern.chol_inv_logdet_cuda.launches
 
+    def gp_counted(fn):
+        """``((out, chol.cu launches), gp_step.cu launches)`` of ``fn``,
+        both counters reset before it."""
+        gp_step_mod.gp_step.launches = 0
+        out = chol_counted(fn)
+        return out, gp_step_mod.gp_step.launches
+
+    def fused_launches(its, max_iter=1000, unroll=4):
+        """The gp_step.cu launches of one fused training whose models took
+        ``its`` iterations: the first build, then one a loop step, the loop
+        running whole blocks of ``unroll`` up to ``max_iter``."""
+        return min(-(-max(its) // unroll) * unroll, max_iter) + 1
+
     def gp_class_flow(gpr_type, engine="device"):
         g = GPR(flag["X_train"], 9, flag["xyz"], Pf, gpr_type)
         g.fit(select_modes="number", n_modes=14)
@@ -2292,22 +2333,25 @@ def main() -> int:
         return g, a_pred, g.reconstruct(a_pred)
 
     gp_runs = {}
-    res_g, n_g = chol_counted(lambda: gpr_end_to_end(
+    (res_g, n_g), n_gs = gp_counted(lambda: gpr_end_to_end(
         flag["X_train"], Pf, Ptf, flag["X_test"], **FLAGSHIP))
-    gp_runs["gpr_end_to_end"] = (res_g.X_rec, float(res_g.nrmse), n_g,
+    gp_runs["gpr_end_to_end"] = (res_g.X_rec, float(res_g.nrmse), n_g, n_gs,
                                  res_g.iterations.tolist())
     gp_models = {}
     for gpr_type in ("SingleTask", "MultiTask"):
-        (g, _, xr), n = chol_counted(lambda: gp_class_flow(gpr_type))
-        gp_runs[gpr_type] = (xr, float(nrmse(xr, Tf)), n,
+        ((g, _, xr), n), n_gs = gp_counted(lambda: gp_class_flow(gpr_type))
+        gp_runs[gpr_type] = (xr, float(nrmse(xr, Tf)), n, n_gs,
                              g._iterations.tolist())
         gp_models[gpr_type] = g
     gp_single = gp_models["SingleTask"]
-    for what, (xr, nr, n, its) in gp_runs.items():
+    gp_step_main_launches = 0
+    for what, (xr, nr, n, n_gs, its) in gp_runs.items():
         bar = GPR_NRMSE_SLACK * GPR_F64_NRMSE[what]
+        want_gs = 0 if what == "MultiTask" else fused_launches(its)
+        gp_step_main_launches += n_gs
         log(f"  {what}: NRMSE {nr:.6e} (≤ {bar:.6e}; float64 JAX on the CPU "
-            f"{GPR_F64_NRMSE[what]:.6e}), chol launches {n}, Adam "
-            f"iterations {its}")
+            f"{GPR_F64_NRMSE[what]:.6e}), chol launches {n}, gp_step "
+            f"launches {n_gs} (want {want_gs}), Adam iterations {its}")
         if tuple(xr.shape) != flag["X_test"].shape or \
                 not bool(torch.isfinite(xr).all()):
             fail(f"GP {what} reconstruction is not finite of shape "
@@ -2316,6 +2360,9 @@ def main() -> int:
             fail(f"GP {what} NRMSE {nr:.6e} > {bar:.6e}")
         if n < 1:
             fail(f"the GP {what} path never launched csrc/chol.cu")
+        if n_gs != want_gs:
+            fail(f"the GP {what} path launched csrc/gp_step.cu {n_gs} times, "
+                 f"not {want_gs}")
 
     log("phase 7: engine='host' against the port's float64 CPU run of the "
         f"same inputs (|ΔNRMSE| ≤ {HOST_ENGINE_TOL})")
@@ -2471,6 +2518,86 @@ def main() -> int:
         "plain_ms": chol_plain_ms,
         "bound_ms": chol_bound,
         "bound_by": "bytes" if chol_bytes_ms >= chol_ops_ms else "operations",
+        "library_ms": None})
+
+    # ---- the fused GP step: csrc/gp_step.cu against its plain version ----
+    log(f"phase 8(b): csrc/gp_step.cu against its plain version at the main "
+        f"path's (14, 41) (one step from gpytorch's initial parameters, "
+        f"≤ {GP_STEP_REL} × each quantity's max), and an iteration's device "
+        f"time, the fused graph (chol.cu + gp_step.cu) beside the oracle's "
+        f"graph-replayed torch step as the yardstick")
+    g1 = gp_single
+    vag = exact_gp.make_single_task_value_and_grad(
+        g1.mean, g1.kernel, g1.likelihood, g1.P0, g1.Vr.T)
+    if vag.fused is None:
+        fail("the main path's oracle offers no fused step")
+    init = [torch.zeros_like(t) for t in exact_gp.tree_leaves(g1.params)]
+    gk = vag.fused([t.clone() for t in init], 0.1, 1e-5)
+    gpl = vag.fused([t.clone() for t in init], 0.1, 1e-5)
+    gp_step_mod._build_plain(gpl)
+    kinv0, ld0 = chol_kern.chol_inv_logdet_cuda(gk.kj)
+    gp_step_mod.gp_step(gk, kinv0, ld0)
+    gp_step_mod._step_plain(gpl, kinv0, ld0)
+    sync()
+    gs_err, gs_abs = {}, {}
+    for name in ("theta", "mu", "nu", "loss", "kj", "resid"):
+        a_, b_ = getattr(gk, name), getattr(gpl, name)
+        gs_abs[name] = float(torch.max(torch.abs(a_ - b_)))
+        gs_err[name] = gs_abs[name] / float(torch.max(torch.abs(b_)))
+    gs_exact = all(torch.equal(getattr(gk, n), getattr(gpl, n))
+                   for n in ("conv", "iters", "count"))
+    log("  kernel vs plain, error / max: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gs_err.items())
+        + f" (max |Δ| {max(gs_abs.values()):.3e}); stop flags and counts "
+        f"equal={gs_exact}")
+    if not (gs_exact and max(gs_err.values()) <= GP_STEP_REL):
+        fail("csrc/gp_step.cu differs from its plain version at (14, 41)")
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        run = vag.fused([t.clone() for t in init], 0.1, 1e-5)
+        run.step()
+        fused_graph = run.capture()
+        leaves0 = [t.clone() for t in init]
+        ostate = (leaves0, [torch.zeros_like(t) for t in leaves0],
+                  [torch.zeros_like(t) for t in leaves0],
+                  torch.full((Bm,), 1e10, device=dev),
+                  torch.zeros(Bm, dtype=torch.bool, device=dev),
+                  torch.zeros(Bm, dtype=torch.int32, device=dev))
+        ostep = functools.partial(
+            exact_gp._adam_step, functools.partial(
+                exact_gp._grads_at, g1.params, None, vag),
+            lr=0.1, rel_error=1e-5)
+        ostate = ostep(ostate, 0.1, 0.001)
+        oracle_graph = exact_gp._StepGraph(ostep, ostate)
+        sync()
+        fused_ms = loop_ms(fused_graph.replay, n=500)
+        oracle_ms = loop_ms(lambda: oracle_graph.replay(0.5, 0.5), n=200)
+        step_ms, step_n = traced_ms(lambda: fused_graph.replay(), "gp_step",
+                                    300, 100)
+    if step_n < 100:
+        fail(f"torch.profiler saw {step_n} gp_step launches of 300")
+    gs_plain_ms = loop_ms(lambda: gp_step_mod._step_plain(gpl, kinv0, ld0),
+                          n=20, warmup=2)
+    gs_bytes_ms, gs_ops_ms = gp_step_bound_ms(Bm, pm, gk.nls,
+                                              gk.theta.shape[1])
+    gs_bound = max(gs_bytes_ms, gs_ops_ms)
+    log(f"  an Adam iteration at ({Bm}, {pm}): fused graph {fused_ms * 1e3:.2f}"
+        f" µs on the card (CUDA events over 500 replays; chol.cu "
+        f"{chol_ms * 1e3:.2f} µs of it), yardstick, the oracle's graph-"
+        f"replayed torch step {oracle_ms * 1e3:.2f} µs (200 replays): "
+        f"{oracle_ms / fused_ms:.2f}×")
+    log(f"  gp_step kernel {step_ms:.5f} ms per launch (device time, median "
+        f"of {step_n} launches by torch.profiler), plain {gs_plain_ms:.4f} ms "
+        f"a step, bound {gs_bound:.6f} ms (bytes {gs_bytes_ms:.6f}, ops "
+        f"{gs_ops_ms:.6f})")
+    records.append({
+        "name": "gp_step", "route": "cuda",
+        "source": "openmeasure_torch/csrc/gp_step.cu", "replaces": None,
+        "launches": gp_step_main_launches,
+        "max_abs_err": max(gs_abs.values()), "ms": step_ms,
+        "plain_ms": gs_plain_ms, "bound_ms": gs_bound,
+        "bound_by": "bytes" if gs_bytes_ms >= gs_ops_ms else "operations",
         "library_ms": None})
 
     # ---- serving, SPR family -------------------------------------------

@@ -22,15 +22,23 @@ its variance kss − ‖L⁻¹ksᵀ‖² comes from a triangular solve, where th
 package's TPU route takes kss − Σ(Ks K⁻¹ ∘ Ks) from the explicit inverse,
 whose cancellation loses the small variances in fp32.
 
+On the card the single-task trainer's iteration, for the specs of
+:func:`.gp_step.takes`, is two launches: ``csrc/chol.cu``, then
+``csrc/gp_step.cu``, which takes the oracle's gradient, steps Adam and
+builds the next K (:mod:`.gp_step`); every other training steps through
+its oracle or autograd.
+
 While the recorder of :mod:`..utils.logging` is on, the trainer records a
-``gp.adam`` span holding one ``gp.iter`` an Adam iteration and counts each
-read of its stop test on the card in ``host_reads``; a posterior is one
-``gp.posterior`` span.
+``gp.adam`` span holding one ``gp.iter`` an Adam iteration, counts each
+read of its stop test on the card in ``host_reads`` and each two-launch
+iteration in ``gp.fused_iters``; a posterior is one ``gp.posterior``
+span.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -43,6 +51,7 @@ from ..linalg.chol import (chol_fits, chol_inv_logdet, cholesky_nan,
 from ..utils import logging as _log
 
 LOG_2PI = math.log(2.0 * math.pi)
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
 
 
 # --------------------------------------------------------------------- #
@@ -218,6 +227,47 @@ class TrainResult(NamedTuple):
     iterations: torch.Tensor  # per-model iteration count (int32)
 
 
+def _grads_at(params0: Dict, loss_fn: Callable,
+              value_and_grad: Optional[Callable], leaves: list):
+    """``(losses (B,), gradient leaves)`` at parameter ``leaves`` of
+    ``params0``'s structure: ``value_and_grad``'s, or autograd of
+    ``sum(loss_fn)`` where it is None."""
+    tree = _unflatten_like(params0, leaves)
+    if value_and_grad is not None:
+        losses, g = value_and_grad(tree)
+        return losses.detach(), [t.detach() for t in tree_leaves(g)]
+    with torch.enable_grad():
+        req = [t.detach().requires_grad_(True) for t in leaves]
+        losses = loss_fn(_unflatten_like(params0, req))
+        g = torch.autograd.grad(torch.sum(losses), req, allow_unused=True)
+    g = [torch.zeros_like(t) if gi is None else gi
+         for t, gi in zip(leaves, g)]
+    return losses.detach(), g
+
+
+def _adam_step(grads_at: Callable, state, c1, c2, lr: float,
+               rel_error: float):
+    """One Adam iteration of :func:`adam_early_stop`: ``state`` (params, μ,
+    ν, last losses, converged, iterations) to the next, from the gradient
+    leaves ``grads_at(params)``; ``c1``, ``c2`` the bias corrections."""
+    params, mu, nu, loss_old, conv, iters = state
+    losses, grads = grads_at(params)
+    e = torch.abs(losses - loss_old)
+    frozen = conv
+    new, mu_n, nu_n = [], [], []
+    for p_, g, m, v in zip(params, grads, mu, nu):
+        m = (1.0 - ADAM_B1) * g + ADAM_B1 * m
+        v = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
+        upd = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+        p_new = p_ + (-lr) * upd
+        mask = frozen.reshape(frozen.shape + (1,) * (p_.ndim - 1))
+        new.append(torch.where(mask, p_, p_new))
+        mu_n.append(m)
+        nu_n.append(v)
+    return (new, mu_n, nu_n, torch.where(frozen, loss_old, losses),
+            conv | (e <= rel_error), torch.where(frozen, iters, iters + 1))
+
+
 @_log.spanned("gp.adam")
 def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
                     max_iter: int = 1000, rel_error: float = 1e-5,
@@ -249,6 +299,12 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     with p ≤ 128, whose every operation launches without a host read or
     an allocation of a library's own), the iteration after the first
     block is a replay of one captured as a CUDA graph, on a side stream.
+    Where it also offers the fused iteration (``value_and_grad.fused``,
+    the single-task oracle on the specs of :func:`.gp_step.takes`), the
+    iteration is two launches, ``csrc/chol.cu`` and ``csrc/gp_step.cu``,
+    over a state kept on the card (:class:`.gp_step.FusedRun`), with the
+    step count and the bias corrections there too; each such iteration
+    adds 1 to the recorder's counter ``gp.fused_iters``.
     ``verbose`` is accepted for signature parity.
 
     ``stop_axis`` (a :class:`..parallel._comm.Axis`) makes the stop test
@@ -257,49 +313,8 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     over all of them does — per-model trajectories and iteration counts
     are those of the unsharded call."""
     del verbose
-    b1, b2, eps = 0.9, 0.999, 1e-8
     params = [t.detach().clone() for t in tree_leaves(params0)]
-    B = params[0].shape[0]
-    like = params[0]
-    state = (params, [torch.zeros_like(t) for t in params],
-             [torch.zeros_like(t) for t in params],
-             torch.full((B,), 1e10, dtype=like.dtype, device=like.device),
-             torch.zeros(B, dtype=torch.bool, device=like.device),
-             torch.zeros(B, dtype=torch.int32, device=like.device))
-
-    def grads_at(leaves):
-        tree = _unflatten_like(params0, leaves)
-        if value_and_grad is not None:
-            losses, g = value_and_grad(tree)
-            return losses.detach(), [t.detach() for t in tree_leaves(g)]
-        with torch.enable_grad():
-            req = [t.detach().requires_grad_(True) for t in leaves]
-            losses = loss_fn(_unflatten_like(params0, req))
-            g = torch.autograd.grad(torch.sum(losses), req, allow_unused=True)
-        g = [torch.zeros_like(t) if gi is None else gi
-             for t, gi in zip(leaves, g)]
-        return losses.detach(), g
-
-    def step(state, c1, c2):
-        """One Adam iteration: ``state`` (params, μ, ν, last losses,
-        converged, iterations) to the next; ``c1``, ``c2`` the bias
-        corrections."""
-        params, mu, nu, loss_old, conv, iters = state
-        losses, grads = grads_at(params)
-        e = torch.abs(losses - loss_old)
-        frozen = conv
-        new, mu_n, nu_n = [], [], []
-        for p_, g, m, v in zip(params, grads, mu, nu):
-            m = (1.0 - b1) * g + b1 * m
-            v = (1.0 - b2) * (g * g) + b2 * v
-            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
-            p_new = p_ + (-lr) * upd
-            mask = frozen.reshape(frozen.shape + (1,) * (p_.ndim - 1))
-            new.append(torch.where(mask, p_, p_new))
-            mu_n.append(m)
-            nu_n.append(v)
-        return (new, mu_n, nu_n, torch.where(frozen, loss_old, losses),
-                conv | (e <= rel_error), torch.where(frozen, iters, iters + 1))
+    fused = getattr(value_and_grad, "fused", None)
 
     def all_stopped(conv) -> bool:
         if conv.is_cuda:
@@ -312,29 +327,79 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     # iteration enqueues take the host ~10× the card's time for them
     captures = getattr(value_and_grad, "capturable", False)
     rec = _log.recorder()        # taken once: each iteration's span inline
-    count, j, graph = 0, 0, None
-    with _side_stream(like) if captures else contextlib.nullcontext():
-        while j < max_iter and not all_stopped(state[4]):
+    j, graph = 0, None
+    with _side_stream(params[0]) if captures else contextlib.nullcontext():
+        if fused is not None:
+            run = fused(params, lr, rel_error)
+        else:
+            run = _OracleRun(functools.partial(
+                _adam_step,
+                functools.partial(_grads_at, params0, loss_fn, value_and_grad),
+                lr=lr, rel_error=rel_error), params)
+        while j < max_iter and not all_stopped(run.conv):
             for _ in range(unroll):
                 if j >= max_iter:
                     break
                 if rec is not None:
                     at = rec.begin("gp.iter")
-                count += 1
-                c1 = 1.0 - b1 ** count
-                c2 = 1.0 - b2 ** count
+                if fused is not None:
+                    _log.count("gp.fused_iters")
                 if graph is None:
-                    state = step(state, c1, c2)
+                    run.step()
                 else:
-                    graph.replay(c1, c2)
+                    graph.replay()
                 j += 1
                 if rec is not None:
                     rec.end(at)
             if captures and graph is None:
-                graph = _StepGraph(step, state)
-                state = graph.state
-    params, _, _, loss_old, _, iters = state
-    return TrainResult(_unflatten_like(params0, params), loss_old, iters)
+                graph = run.capture()
+    leaves, losses, iters = run.result()
+    return TrainResult(_unflatten_like(params0, leaves), losses, iters)
+
+
+class _OracleRun:
+    """A training's state under its oracle's (or autograd's) Adam step,
+    advanced in place as :class:`.gp_step.FusedRun`'s is: ``state`` is
+    (params, μ, ν, last losses, converged, iterations), ``step`` is
+    :func:`_adam_step` bound to its gradient, and the step count behind
+    the bias corrections is kept here, on the host."""
+
+    def __init__(self, step: Callable, params: list):
+        B, like = params[0].shape[0], params[0]
+        self._step, self._count, self._graph = step, 0, None
+        self.state = (params, [torch.zeros_like(t) for t in params],
+                      [torch.zeros_like(t) for t in params],
+                      torch.full((B,), 1e10, dtype=like.dtype,
+                                 device=like.device),
+                      torch.zeros(B, dtype=torch.bool, device=like.device),
+                      torch.zeros(B, dtype=torch.int32, device=like.device))
+
+    @property
+    def conv(self) -> torch.Tensor:
+        return self.state[4]
+
+    def _corrections(self):
+        self._count += 1
+        return 1.0 - ADAM_B1 ** self._count, 1.0 - ADAM_B2 ** self._count
+
+    def step(self) -> None:
+        """One Adam iteration, its launches enqueued one by one."""
+        self.state = self._step(self.state, *self._corrections())
+
+    def capture(self) -> "_OracleRun":
+        """:meth:`step` captured as a CUDA graph over the state, which each
+        :meth:`replay` then advances in place."""
+        self._graph = _StepGraph(self._step, self.state)
+        self.state = self._graph.state
+        return self
+
+    def replay(self) -> None:
+        self._graph.replay(*self._corrections())
+
+    def result(self):
+        """``(parameter leaves, last losses, iterations)``."""
+        params, _, _, losses, _, iters = self.state
+        return params, losses, iters
 
 
 class _StepGraph:
@@ -451,7 +516,12 @@ def make_single_task_value_and_grad(mean_spec, kernel_spec, likelihood_spec,
         grads["likelihood"] = lgrad
         return -lp / p, grads
 
+    from . import gp_step as _gp_step
     batched.capturable = _use_kernel_path(p, X.dtype, X.device)
+    batched.fused = functools.partial(
+        _gp_step.FusedRun, core, Y, _jitter(X.dtype)) if _gp_step.takes(
+            mean_spec, kernel_spec, likelihood_spec, X.dtype, X.device, p) \
+        else None
     return batched
 
 
@@ -494,7 +564,7 @@ class _ClosedFormCore:
         nu = getattr(base, "nu", None)                    # None → RBF
         return cls(mean_spec, scaled, nu, D2, X)
 
-    def _g_and_gprime(self, d2):
+    def g_and_gprime(self, d2):
         """Kernel profile g(d²) and its derivative dg/dd², the ν = 0.5
         derivative guarded to 0 on the diagonal exactly as the autograd
         path's where-guard is."""
@@ -530,7 +600,7 @@ class _ClosedFormCore:
         ls = K.softplus(raw_ls)
         inv_ls2 = 1.0 / (ls * ls)
         d2 = torch.tensordot(inv_ls2, self.D2, dims=([1], [0]))  # (b, p, p)
-        g, gp = self._g_and_gprime(d2)
+        g, gp = self.g_and_gprime(d2)
         if self.scaled:
             s = K.softplus(kp["raw_outputscale"])[:, None, None]
             Km = s * g

@@ -42,6 +42,10 @@ The spans and counters of the port:
   kernel pair of ``linalg/admm_cuda.py`` instead of the loop.
 - counter ``chol.kernel_launches``: the launches of ``csrc/chol.cu``
   (``linalg/chol_cuda.py``).
+- counter ``gp.fused_iters``: the Adam iterations of ``gp/exact_gp.py``'s
+  trainer that took the two-launch step (``csrc/chol.cu``, then
+  ``csrc/gp_step.cu``; ``gp/gp_step.py``), counted on the host: how often
+  that route engages.
 """
 
 from __future__ import annotations

@@ -225,14 +225,17 @@ def test_gp_paths_on_card_go_through_the_kernel(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("gpr_type", ["SingleTask", "MultiTask"])
 def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type):
-    """On the card the Adam loop replays its iteration as a CUDA graph
-    after a first eager block: the trained state equals, bit for bit, the
-    same static-state iterations run eagerly (each replay's step run as
-    plain launches), and the kernel's launch counter counts the replays'
-    launches, one an iteration."""
+    """On the card the Adam loop replays its oracle's iteration as a CUDA
+    graph after a first eager block: the trained state equals, bit for
+    bit, the same static-state iterations run eagerly (each replay's step
+    run as plain launches), and the kernel's launch counter counts the
+    replays' launches, one an iteration.  The SingleTask model trains with
+    a LinearMean, which keeps the oracle's step (a ConstantMean takes the
+    fused step of ``csrc/gp_step.cu``, ``tests/test_torch_gp_step_cuda.py``)."""
     from openmeasure_torch import GPR
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
     from openmeasure_torch.gp import exact_gp as E
+    from openmeasure_torch.gp.kernels import LinearMean
 
     class Eager(E._StepGraph):
         def __init__(self, step, state):
@@ -254,7 +257,8 @@ def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type):
         g = GPR(d["X_train"], 3, d["xyz"], d["P_train"], gpr_type)
         g.fit(select_modes="number", n_modes=6)
         before = TCC.chol_inv_logdet_cuda.launches
-        g.train(max_iter=203)
+        g.train(max_iter=203, mean=LinearMean() if gpr_type == "SingleTask"
+                else None)
         torch.cuda.synchronize()
         return g, TCC.chol_inv_logdet_cuda.launches - before
 
