@@ -124,6 +124,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -1865,6 +1866,7 @@ def main() -> int:
     from openmeasure_torch.linalg import qrcp_cuda as kern
     from openmeasure_torch.linalg import svd
     from openmeasure_torch.pipelines import gpr_end_to_end, spr_end_to_end
+    from openmeasure_torch.utils import logging as tlog
     from openmeasure_torch.utils.convert import gpr_from_numpy
     from openmeasure_torch.utils.metrics import nrmse
     from openmeasure_torch.utils.timing import device_ms
@@ -1893,6 +1895,18 @@ def main() -> int:
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
+
+    def kernel_launches(kernel, fn):
+        """``(fn(), the launches of csrc/<kernel>.cu it made)``, read from
+        the recorder's ``<kernel>.kernel_launches`` (an open recording's,
+        else one opened for the call)."""
+        name = kernel + ".kernel_launches"
+        with contextlib.ExitStack() as stack:
+            rec = tlog.recorder() or stack.enter_context(tlog.recording())
+            before = rec.counters.get(name, 0)
+            out = fn()
+            sync()
+            return out, rec.counters.get(name, 0) - before
 
     def kernel_vs_plain(A, k, s):
         """Kernel and plain version on the same panel: (pivots equal?,
@@ -2032,9 +2046,8 @@ def main() -> int:
                         base[:5000].expand(14, 5000), 14),
                        ("overlapping (14, 5000) strides (7, 1)",
                         torch.as_strided(base, (14, 5000), (7, 1)), 14)):
-        before = kern.qrcp_pivots_cuda.launches
-        pa = kern.qrcp_pivots_auto(V, k)
-        launched = kern.qrcp_pivots_cuda.launches - before
+        pa, launched = kernel_launches(
+            "qrcp", lambda: kern.qrcp_pivots_auto(V, k))
         pp = plain.qrcp_pivots(V, k)
         sync()
         eq = bool(torch.equal(pa, pp))
@@ -2052,10 +2065,7 @@ def main() -> int:
 
     # ---- the main path, each entry point with the counter reset --------
     def counted(fn):
-        kern.qrcp_pivots_cuda.launches = 0
-        out = fn()
-        sync()
-        return out, kern.qrcp_pivots_cuda.launches
+        return kernel_launches("qrcp", fn)
 
     log("phase 2: main path (counters reset before each entry point)")
     res_f, launches_f = counted(lambda: spr_end_to_end(
@@ -2302,22 +2312,16 @@ def main() -> int:
 
     # ---- GP ROM: the main path, each entry point with the counter reset --
     log("phase 6: GP ROM main path, flagship (the chol.cu and gp_step.cu "
-        "launch counters reset before each entry point)")
+        "launches of each entry point, from the recorder's counters)")
     Pf, Ptf = flag["P_train"], flag["P_test"]
     Tf64 = torch.as_tensor(flag["X_test"], dtype=torch.float64)
 
     def chol_counted(fn):
-        chol_kern.chol_inv_logdet_cuda.launches = 0
-        out = fn()
-        sync()
-        return out, chol_kern.chol_inv_logdet_cuda.launches
+        return kernel_launches("chol", fn)
 
     def gp_counted(fn):
-        """``((out, chol.cu launches), gp_step.cu launches)`` of ``fn``,
-        both counters reset before it."""
-        gp_step_mod.gp_step.launches = 0
-        out = chol_counted(fn)
-        return out, gp_step_mod.gp_step.launches
+        """``((out, chol.cu launches), gp_step.cu launches)`` of ``fn``."""
+        return kernel_launches("gp_step", lambda: chol_counted(fn))
 
     def fused_launches(its, max_iter=1000, unroll=4):
         """The gp_step.cu launches of one fused training whose models took
@@ -2557,24 +2561,19 @@ def main() -> int:
     with torch.cuda.stream(side):
         run = vag.fused([t.clone() for t in init], 0.1, 1e-5)
         run.step()
-        fused_graph = run.capture()
-        leaves0 = [t.clone() for t in init]
-        ostate = (leaves0, [torch.zeros_like(t) for t in leaves0],
-                  [torch.zeros_like(t) for t in leaves0],
-                  torch.full((Bm,), 1e10, device=dev),
-                  torch.zeros(Bm, dtype=torch.bool, device=dev),
-                  torch.zeros(Bm, dtype=torch.int32, device=dev))
+        fused_graph = exact_gp._Replay(run)
         ostep = functools.partial(
             exact_gp._adam_step, functools.partial(
                 exact_gp._grads_at, g1.params, None, vag),
             lr=0.1, rel_error=1e-5)
-        ostate = ostep(ostate, 0.1, 0.001)
-        oracle_graph = exact_gp._StepGraph(ostep, ostate)
+        orun = exact_gp._OracleRun(ostep, [t.clone() for t in init],
+                                   max_iter=1000)
+        orun.step()
+        oracle_graph = exact_gp._Replay(orun)
         sync()
-        fused_ms = loop_ms(fused_graph.replay, n=500)
-        oracle_ms = loop_ms(lambda: oracle_graph.replay(0.5, 0.5), n=200)
-        step_ms, step_n = traced_ms(lambda: fused_graph.replay(), "gp_step",
-                                    300, 100)
+        fused_ms = loop_ms(fused_graph.step, n=500)
+        oracle_ms = loop_ms(oracle_graph.step, n=200)
+        step_ms, step_n = traced_ms(fused_graph.step, "gp_step", 300, 100)
     if step_n < 100:
         fail(f"torch.profiler saw {step_n} gp_step launches of 300")
     gs_plain_ms = loop_ms(lambda: gp_step_mod._step_plain(gpl, kinv0, ld0),
@@ -2662,10 +2661,9 @@ def main() -> int:
         s64 = SoftSensor.from_spr(spr_s, dtype=torch.float64,
                                   admm_iters=SERVE_ITERS, admm_rho=mode)
         # the main path reaches csrc/admm.cu: two launches an iteration of
-        # one fp32 batch, counted from zero
-        admm_k.admm_fused.launches = 0
-        x32, a32, _ = s32.predict_batch(Y)
-        n_admm = admm_k.admm_fused.launches
+        # one fp32 batch
+        (x32, a32, _), n_admm = kernel_launches(
+            "admm", lambda: s32.predict_batch(Y))
         admm_main_launches += n_admm
         _, a64, _ = s64.predict_batch(Y)
         sync()
@@ -2717,8 +2715,9 @@ def main() -> int:
     plan_s = admm_k.device_plan(SERVE_BATCH, n_s, r_s, True, dev)
 
     def admm_solve(iters):
-        return admm_k.admm_fused(H_s, c_s, boxls_mod._Operator(A_s), lo_s,
-                                 hi_s, AtA_s, None, iters, 1.6, True, True)
+        return boxls_mod._admm_kernels(H_s, c_s, boxls_mod._Operator(A_s),
+                                       lo_s, hi_s, AtA_s, None, iters, 1.6,
+                                       True, True)
 
     def admm_loop(iters, dtype=torch.float32):
         H, c, A, lo, hi, AtA = (x.to(dtype) for x in (H_s, c_s, A_s, lo_s,
@@ -2848,15 +2847,16 @@ def main() -> int:
                                    batch=Ptft.shape[0])
     # a request's posterior is a Cholesky factor and triangular solves:
     # it launches no csrc/chol.cu (training does)
-    chol_kern.chol_inv_logdet_cuda.launches = 0
     n_req = 0
     outs = {}
-    for tag, sensor in (("free", g_free), ("limits", g_box)):
-        for _ in range(3):
-            outs[tag] = sensor(Ptft)
-            n_req += 1
-    sync()
-    gp_sensor_launches = chol_kern.chol_inv_logdet_cuda.launches
+
+    def requests():
+        nonlocal n_req
+        for tag, sensor in (("free", g_free), ("limits", g_box)):
+            for _ in range(3):
+                outs[tag] = sensor(Ptft)
+                n_req += 1
+    _, gp_sensor_launches = chol_counted(requests)
     if gp_sensor_launches:
         fail(f"GPRSensor requests launched csrc/chol.cu "
              f"{gp_sensor_launches} times")

@@ -44,14 +44,11 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from . import gp_step as _gp_step
 from . import kernels as K
-from ..linalg import chol_cuda as _chol_cuda
-from ..linalg.chol import (chol_fits, chol_inv_logdet, cholesky_nan,
-                           kernel_path_wanted)
+from ..linalg.chol import chol_inv_logdet, cholesky_nan, kernel_takes
 from ..utils import logging as _log
-
-LOG_2PI = math.log(2.0 * math.pi)
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
+from .kernels import ADAM_B1, ADAM_B2, ADAM_EPS, LOG_2PI
 
 
 # --------------------------------------------------------------------- #
@@ -97,13 +94,6 @@ def _jitter(dtype) -> float:
     return 1e-8 if dtype == torch.float64 else 1e-6
 
 
-def _use_kernel_path(n: int, dtype, device) -> bool:
-    """The explicit-inverse formulation runs where the CUDA kernel takes
-    the matrices; elsewhere the single-right-hand-side Cholesky branch is
-    cheaper and better conditioned."""
-    return kernel_path_wanted(dtype, device) and chol_fits(1, n)
-
-
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
@@ -130,7 +120,7 @@ def _lp_alpha_kinv(Kn: torch.Tensor, resid: torch.Tensor, need_kinv: bool):
     n = Kn.shape[-1]
     eye = _eye(n, Kn)
     Kj = Kn + _jitter(Kn.dtype) * eye
-    if _use_kernel_path(n, Kn.dtype, Kn.device):
+    if kernel_takes(Kn.dtype, Kn.device, n):
         Kinv, logdet = chol_inv_logdet(Kj)
         alpha = (Kinv @ resid[..., :, None])[..., 0]
         lp = -0.5 * _dot(resid, alpha) - 0.5 * logdet - 0.5 * n * LOG_2PI
@@ -293,19 +283,19 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     be no-ops), so results do not depend on ``unroll``.
 
     ``value_and_grad(params) -> (losses (B,), grads dict)`` replaces
-    autograd of ``sum(loss_fn)`` (the closed-form oracles below).  Where
-    it says that its iteration can be captured (``value_and_grad
+    autograd of ``sum(loss_fn)`` (the closed-form oracles below), and
+    picks the run that steps the training: where it offers the fused
+    iteration (``value_and_grad.fused``, the single-task oracle on the
+    specs of :func:`.gp_step.takes`), two launches, ``csrc/chol.cu`` and
+    ``csrc/gp_step.cu``, over a state kept on the card
+    (:class:`.gp_step.FusedRun`, each iteration counted in
+    ``gp.fused_iters``); else its oracle's step (:class:`_OracleRun`).
+    Where it says that its iteration can be captured (``value_and_grad
     .capturable``: the oracles below on the kernel path, a CUDA fp32 batch
     with p ≤ 128, whose every operation launches without a host read or
     an allocation of a library's own), the iteration after the first
-    block is a replay of one captured as a CUDA graph, on a side stream.
-    Where it also offers the fused iteration (``value_and_grad.fused``,
-    the single-task oracle on the specs of :func:`.gp_step.takes`), the
-    iteration is two launches, ``csrc/chol.cu`` and ``csrc/gp_step.cu``,
-    over a state kept on the card (:class:`.gp_step.FusedRun`), with the
-    step count and the bias corrections there too; each such iteration
-    adds 1 to the recorder's counter ``gp.fused_iters``.
-    ``verbose`` is accepted for signature parity.
+    block is a replay of one captured as a CUDA graph, on a side stream
+    (:class:`_Replay`).  ``verbose`` is accepted for signature parity.
 
     ``stop_axis`` (a :class:`..parallel._comm.Axis`) makes the stop test
     collective: each rank trains its own models, and the loop runs until
@@ -314,7 +304,6 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     are those of the unsharded call."""
     del verbose
     params = [t.detach().clone() for t in tree_leaves(params0)]
-    fused = getattr(value_and_grad, "fused", None)
 
     def all_stopped(conv) -> bool:
         if conv.is_cuda:
@@ -325,48 +314,54 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     # on the card the closed-form oracle's iteration is replayed as a CUDA
     # graph after a first block run eagerly: the ~120 launches an eager
     # iteration enqueues take the host ~10× the card's time for them
-    captures = getattr(value_and_grad, "capturable", False)
+    capture = getattr(value_and_grad, "capturable", False)
+    fused = getattr(value_and_grad, "fused", None)
     rec = _log.recorder()        # taken once: each iteration's span inline
-    j, graph = 0, None
-    with _side_stream(params[0]) if captures else contextlib.nullcontext():
-        if fused is not None:
-            run = fused(params, lr, rel_error)
-        else:
-            run = _OracleRun(functools.partial(
+    j = 0
+    with _side_stream(params[0]) if capture else contextlib.nullcontext():
+        run = fused(params, lr, rel_error) if fused is not None else \
+            _OracleRun(functools.partial(
                 _adam_step,
                 functools.partial(_grads_at, params0, loss_fn, value_and_grad),
-                lr=lr, rel_error=rel_error), params)
+                lr=lr, rel_error=rel_error), params,
+                max_iter if capture else None)
+        step = run.step
         while j < max_iter and not all_stopped(run.conv):
             for _ in range(unroll):
                 if j >= max_iter:
                     break
                 if rec is not None:
                     at = rec.begin("gp.iter")
-                if fused is not None:
-                    _log.count("gp.fused_iters")
-                if graph is None:
-                    run.step()
-                else:
-                    graph.replay()
+                step()
                 j += 1
                 if rec is not None:
                     rec.end(at)
-            if captures and graph is None:
-                graph = run.capture()
+            if capture:                  # after the first block
+                step, capture = _Replay(run).step, False
     leaves, losses, iters = run.result()
     return TrainResult(_unflatten_like(params0, leaves), losses, iters)
 
 
 class _OracleRun:
     """A training's state under its oracle's (or autograd's) Adam step,
-    advanced in place as :class:`.gp_step.FusedRun`'s is: ``state`` is
-    (params, μ, ν, last losses, converged, iterations), ``step`` is
-    :func:`_adam_step` bound to its gradient, and the step count behind
-    the bias corrections is kept here, on the host."""
+    which :meth:`step` advances in place, as :class:`.gp_step.FusedRun`'s:
+    ``state`` is (params, μ, ν, last losses, converged, iterations),
+    ``step`` is :func:`_adam_step` bound to its gradient.  The step count
+    behind the bias corrections is a Python int; for a run that a graph
+    replays (``max_iter`` given) it is a tensor on the card, and each step
+    reads its corrections from a table of the ``max_iter`` steps' made
+    there once (:func:`.gp_step.bias_corrections`)."""
 
-    def __init__(self, step: Callable, params: list):
+    def __init__(self, step: Callable, params: list,
+                 max_iter: Optional[int] = None):
         B, like = params[0].shape[0], params[0]
-        self._step, self._count, self._graph = step, 0, None
+        self._step, self._count, self._table = step, 0, None
+        if max_iter is not None:
+            self._count = torch.zeros(1, dtype=torch.int64,
+                                      device=like.device)
+            self._table = torch.stack(_gp_step.bias_corrections(
+                torch.arange(max_iter + 1, device=like.device), like.dtype),
+                dim=1)
         self.state = (params, [torch.zeros_like(t) for t in params],
                       [torch.zeros_like(t) for t in params],
                       torch.full((B,), 1e10, dtype=like.dtype,
@@ -379,22 +374,18 @@ class _OracleRun:
         return self.state[4]
 
     def _corrections(self):
+        if self._table is not None:
+            self._count.add_(1)
+            c = self._table.index_select(0, self._count)
+            return c[:, 0], c[:, 1]
         self._count += 1
         return 1.0 - ADAM_B1 ** self._count, 1.0 - ADAM_B2 ** self._count
 
     def step(self) -> None:
         """One Adam iteration, its launches enqueued one by one."""
-        self.state = self._step(self.state, *self._corrections())
-
-    def capture(self) -> "_OracleRun":
-        """:meth:`step` captured as a CUDA graph over the state, which each
-        :meth:`replay` then advances in place."""
-        self._graph = _StepGraph(self._step, self.state)
-        self.state = self._graph.state
-        return self
-
-    def replay(self) -> None:
-        self._graph.replay(*self._corrections())
+        out = self._step(self.state, *self._corrections())
+        for s, o in zip(_flat_state(self.state), _flat_state(out)):
+            s.copy_(o)
 
     def result(self):
         """``(parameter leaves, last losses, iterations)``."""
@@ -402,35 +393,24 @@ class _OracleRun:
         return params, losses, iters
 
 
-class _StepGraph:
-    """One iteration of :func:`adam_early_stop` captured as a CUDA graph
-    over a static ``state``, which each :meth:`replay` advances in place;
-    the bias corrections are device scalars filled before each replay.
-    ``launches`` counts the ``csrc/chol.cu`` launches a replay makes, added
-    to the kernel's launch counters at each replay."""
+class _Replay:
+    """``run.step`` captured once as a CUDA graph on the current stream:
+    each :meth:`step` replays it, advancing the run in place, and adds the
+    counts that the capture tallied (the kernels' launches,
+    ``gp.fused_iters``; :func:`..utils.logging.capture_tally`)."""
 
-    def __init__(self, step: Callable, state):
-        self.state = state
-        like = state[0][0]
-        self.c = [torch.zeros((), dtype=like.dtype, device=like.device)
-                  for _ in range(2)]
-        flat = _flat_state(state)
-        before = _chol_cuda.chol_inv_logdet_cuda.captured
+    def __init__(self, run):
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.capture_begin()
-        try:
-            out = _flat_state(step(state, *self.c))
-            for s, o in zip(flat, out):
-                s.copy_(o)
-        finally:
-            self.graph.capture_end()
-        self.launches = _chol_cuda.chol_inv_logdet_cuda.captured - before
+        with _log.capture_tally() as self.tally:
+            self.graph.capture_begin()
+            try:
+                run.step()
+            finally:
+                self.graph.capture_end()
 
-    def replay(self, c1: float, c2: float) -> None:
-        self.c[0].fill_(c1)
-        self.c[1].fill_(c2)
+    def step(self) -> None:
         self.graph.replay()
-        _chol_cuda.count_launches(self.launches)
+        _log.count_all(self.tally)
 
 
 # one side stream a card, made once: torch keeps a cuBLAS workspace (32 MB
@@ -516,8 +496,7 @@ def make_single_task_value_and_grad(mean_spec, kernel_spec, likelihood_spec,
         grads["likelihood"] = lgrad
         return -lp / p, grads
 
-    from . import gp_step as _gp_step
-    batched.capturable = _use_kernel_path(p, X.dtype, X.device)
+    batched.capturable = kernel_takes(X.dtype, X.device, p)
     batched.fused = functools.partial(
         _gp_step.FusedRun, core, Y, _jitter(X.dtype)) if _gp_step.takes(
             mean_spec, kernel_spec, likelihood_spec, X.dtype, X.device, p) \
@@ -670,7 +649,7 @@ def make_multitask_value_and_grad(mean_spec, kernel_spec, likelihood_spec,
         loss = -torch.sum(lps) / (p * r)
         return loss[None], {"tasks": task_grads, "likelihood": lgrad}
 
-    joint.capturable = _use_kernel_path(p, X.dtype, X.device)
+    joint.capturable = kernel_takes(X.dtype, X.device, p)
     return joint
 
 

@@ -3,7 +3,7 @@
 kernel of ``csrc/gp_step.cu``, which takes the closed-form gradient, steps
 Adam, tests the stop and builds the next iteration's K.  Here are the
 route's predicate, a training's state (:class:`FusedRun`), the kernel's
-wrapper, its plain version and its launch counter.
+wrapper and its plain version.
 
 The JAX package has no Pallas kernel here: its trainer is a
 ``lax.while_loop`` that XLA compiles into one program around the Pallas
@@ -17,8 +17,8 @@ hundred floats of work; the kernel runs them as one launch.
 can observe: a ``GaussianLikelihood``; a ``ZeroMean`` or ``ConstantMean``;
 an RBF or Matérn (ν ∈ {0.5, 1.5, 2.5}) profile, bare or under a
 ``ScaleKernel``, with a scalar lengthscale or at most :data:`LS_MAX` ARD
-ones; CUDA float32 with p ≤ 128 (:func:`..linalg.chol.chol_fits`).  Every
-other training keeps the oracle's step.
+ones; CUDA float32 with p ≤ 128 (:func:`..linalg.chol.kernel_takes`).
+Every other training keeps the oracle's step.
 
 A training's raw parameters are one row a model of ``theta``, in the order
 of the trainer's leaves (lengthscales, outputscale, noise, constant).  The
@@ -40,9 +40,9 @@ import torch
 
 from . import kernels as K
 from ..linalg import chol_cuda as _chol_cuda
-from ..linalg.chol import chol_inv_logdet_auto
-from .exact_gp import (ADAM_B1 as B1, ADAM_B2 as B2, ADAM_EPS as EPS,
-                       LOG_2PI, _use_kernel_path)
+from ..linalg.chol import chol_inv_logdet_auto, kernel_takes
+from ..utils import logging as _log
+from .kernels import ADAM_B1 as B1, ADAM_B2 as B2, ADAM_EPS as EPS, LOG_2PI
 
 LS_MAX = 16     # lengthscales a model the kernel takes (kMaxLs)
 PROFILES = {None: 0, 0.5: 1, 1.5: 2, 2.5: 3}   # RBF, then Matérn by ν
@@ -58,7 +58,7 @@ def takes(mean_spec, kernel_spec, likelihood_spec, dtype, device,
             and isinstance(mean_spec, (K.ZeroMean, K.ConstantMean))
             and isinstance(base, (K.RBFKernel, K.MaternKernel))
             and (base.ard_num_dims or 1) <= LS_MAX
-            and p >= 1 and _use_kernel_path(p, dtype, device))
+            and p >= 1 and kernel_takes(dtype, device, p))
 
 
 def bias_corrections(count: torch.Tensor, dtype):
@@ -110,22 +110,10 @@ class FusedRun:
 
     def step(self) -> None:
         """One Adam iteration: (K⁻¹, logdet) of the built K, then the step
-        and the next build."""
+        and the next build; counted in ``gp.fused_iters``."""
         kinv, logdet = chol_inv_logdet_auto(self.kj)
         gp_step(self, kinv, logdet)
-
-    def capture(self) -> "_Graph":
-        """:meth:`step` captured as a CUDA graph on the current stream."""
-        chol0, step0 = _chol_cuda.chol_inv_logdet_cuda.captured, \
-            gp_step.captured
-        graph = torch.cuda.CUDAGraph()
-        graph.capture_begin()
-        try:
-            self.step()
-        finally:
-            graph.capture_end()
-        return _Graph(graph, _chol_cuda.chol_inv_logdet_cuda.captured - chol0,
-                      gp_step.captured - step0)
+        _log.count("gp.fused_iters")
 
     def result(self) -> Tuple[List[torch.Tensor], torch.Tensor,
                               torch.Tensor]:
@@ -138,20 +126,6 @@ class FusedRun:
                 memory_format=torch.contiguous_format))
             at += w
         return out, self.loss, self.iters
-
-
-class _Graph:
-    """A captured :meth:`FusedRun.step`; each :meth:`replay` advances the
-    run in place and counts the launches it makes."""
-
-    def __init__(self, graph, chol_launches: int, step_launches: int):
-        self.graph = graph
-        self.launches = (chol_launches, step_launches)
-
-    def replay(self) -> None:
-        self.graph.replay()
-        _chol_cuda.count_launches(self.launches[0])
-        count_launches(self.launches[1])
 
 
 # ---- the plain version ----------------------------------------------------
@@ -296,9 +270,8 @@ def gp_step(run: FusedRun, kinv: Optional[torch.Tensor] = None,
     """One launch of ``csrc/gp_step.cu`` on the run's state: the Adam
     iteration from the built K's ``kinv`` and ``logdet`` and the next
     build, or the build alone where they are None.  A CPU state takes the
-    plain version.  ``gp_step.launches`` counts the launches; a call while
-    the stream captures a CUDA graph launches nothing and is counted in
-    ``gp_step.captured``, for the graph's replays to count."""
+    plain version.  The launch is counted in the recorder's
+    ``gp_step.kernel_launches``."""
     if not run.theta.is_cuda:
         if kinv is None:
             _build_plain(run)
@@ -325,17 +298,4 @@ def gp_step(run: FusedRun, kinv: Optional[torch.Tensor] = None,
         err = _library().gp_step_launch(ctypes.byref(args))
     if err != 0:
         raise RuntimeError(f"csrc/gp_step.cu launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        gp_step.captured += 1
-    else:
-        count_launches(1)
-
-
-gp_step.launches = 0
-gp_step.captured = 0
-
-
-def count_launches(n: int) -> None:
-    """Count ``n`` launches of the kernel: the calls that made them, or
-    the replays of a graph that captured them."""
-    gp_step.launches += n
+    _log.launched("gp_step")

@@ -178,6 +178,9 @@ class LinearKernel:
 # --------------------------------------------------------------------- #
 
 NOISE_LOWER = 1e-4  # gpytorch GreaterThan(1e-4) default constraint
+LOG_2PI = math.log(2.0 * math.pi)
+# the GP trainer's Adam (gp/exact_gp.py, gp/gp_step.py): optax.adam's defaults
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 @dataclasses.dataclass(frozen=True)

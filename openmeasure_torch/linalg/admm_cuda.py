@@ -1,6 +1,7 @@
 """The fixed-budget ADMM on the card: the two CUDA kernels of
 ``csrc/admm.cu`` that run one iteration of :func:`.boxls._admm`, their
-launch plan, the dispatch predicate and the launch counter.
+launch plan, their argument block, the launches and the dispatch
+predicate.
 
 The JAX package has no Pallas kernel here: its ADMM is a
 ``lax.while_loop`` that XLA compiles into one program.  Eager PyTorch
@@ -33,8 +34,9 @@ place.  No float atomics: the same batch gives the same bits.
 unsharded dense operator of r ≤ :data:`R_MAX` columns and no right
 factor, ``tol == 0``.  Every other solve keeps the loop.  The plain
 version of the pair is the loop itself, :func:`.boxls._admm` at
-``tol == 0``: on a CPU tensor :func:`admm_fused` runs it; on a CUDA tensor
-it launches the kernels or raises.
+``tol == 0``, which also owns the solve's warm start, its first step and
+its :class:`.boxls.ADMMInfo` (:func:`.boxls._admm_kernels`); the kernels
+have no CPU version.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from ..utils import logging as _log
-from . import boxls as _bx
 
 R_MAX = 32          # columns of A the kernels take (kRMax of csrc/admm.cu)
 WARPS_MAX = 16      # warps a row-pass block, one frame at a time each
@@ -200,33 +201,6 @@ def _rows_of(x: torch.Tensor, b: int, n: int) -> torch.Tensor:
     return x.contiguous()
 
 
-def _start(H, c, op, lo, hi, AtA, rho, over_relax, adapt, n_rows,
-           plan: Plan) -> _State:
-    """The loop's warm start and first step, and the state of the kernels.
-    The first step's coefficients are the loop's first ``g_n``, from the
-    factor at ρ₀ and ``c + ρ₀Aᵀz₀`` (w₀ = 0)."""
-    b, r = c.shape
-    n = op.A.shape[0]
-    dtype, dev = c.dtype, c.device
-    rho = _bx._penalty(H, AtA, rho, b, dtype, dev)
-    L = _bx._factorizer(H, AtA, r)(rho)
-    lo, hi = _rows_of(lo, b, n), _rows_of(hi, b, n)
-    g, z, _ = _bx._warm_start(c, op, lo, hi, L)
-    gn = _bx._cho_solve(L, c + rho[:, None] * op.adj(z))
-    inf = torch.full((b,), float("inf"), dtype=dtype, device=dev)
-    return _State(
-        A=op.A.contiguous(), lo=lo, hi=hi, z=z, w=torch.zeros_like(z),
-        H=H.contiguous(), c=c.contiguous(), AtA=AtA.contiguous(),
-        Lfix=L.contiguous(), g=g.contiguous(), gn=gn.contiguous(), rho=rho,
-        rho0=rho.clone(), s=torch.ones(b, dtype=dtype, device=dev),
-        pri=inf, dua=inf.clone(),
-        k=torch.zeros(b, dtype=torch.int32, device=dev),
-        conv=torch.zeros(b, dtype=torch.int32, device=dev),
-        part=torch.empty(plan.partials, dtype=dtype, device=dev),
-        alpha=float(over_relax), sqrt_n=_bx._sqrt_rows(op, n_rows),
-        sqrt_r=float(r) ** 0.5, adapt=bool(adapt))
-
-
 # ---- the kernels --------------------------------------------------------
 
 def _launcher(st: _State, plan: Plan):
@@ -281,25 +255,41 @@ def _check(H, c, A, lo, hi, AtA) -> None:
                              f"{tuple(x.shape)}")
 
 
-def admm_fused(H, c, op, lo, hi, AtA, rho, max_iter: int, over_relax,
-               adapt_rho: bool, batched: bool, n_rows=None):
-    """:func:`.boxls._admm` at ``tol == 0`` with each iteration as the row
-    pass and the r-step: the kernels of ``csrc/admm.cu`` for CUDA float32
-    tensors (no host read, nothing allocated in the loop), else the loop
-    itself.  ``op`` an unsharded :class:`.boxls._Operator` without a
-    right factor.  The warm start and :class:`.boxls.ADMMInfo` are the
-    loop's; with ``adapt_rho=False`` the factor is computed once.
-    ``admm_fused.launches`` counts the kernels' launches."""
-    if not c.is_cuda:
-        return _bx._admm(H, c, op, lo, hi, AtA, rho, max_iter, 0.0,
-                         over_relax, adapt_rho, batched, n_rows)
-    _check(H, c, op.A, lo, hi, AtA)
+def plan_for(H, c, A, lo, hi, AtA, adapt: bool) -> Plan:
+    """The launch plan of a solve on ``c``'s card; raises on what the
+    kernels do not take."""
+    _check(H, c, A, lo, hi, AtA)
     b, r = c.shape
-    plan = device_plan(b, op.A.shape[0], r, adapt_rho, c.device)
-    st = _start(H, c, op, lo, hi, AtA, rho, over_relax, adapt_rho, n_rows,
-                plan)
+    return device_plan(b, A.shape[0], r, adapt, c.device)
+
+
+def admm_fused(plan: Plan, H, c, A, lo, hi, AtA, L, g, z, gn, rho,
+               max_iter: int, over_relax, adapt_rho: bool, sqrt_n: float):
+    """The iterations of :func:`.boxls._admm` at ``tol == 0`` from its warm
+    start (``g``, ``z``, w = 0), its factor ``L`` at the initial penalty
+    ``rho`` and its first step's coefficients ``gn``, each as the row pass
+    and the r-step of ``csrc/admm.cu`` (no host read, nothing allocated in
+    the loop); with ``adapt_rho=False``, ``L`` is the factor throughout.
+    Returns the accepted iterate and, per frame, the iterations and the
+    last primal and dual residuals: ``(g, k, pri, dua)``.  The launches
+    are counted in the recorder's ``admm.kernel_launches``."""
+    b, r = c.shape
+    n = A.shape[0]
+    dtype, dev = c.dtype, c.device
+    inf = torch.full((b,), float("inf"), dtype=dtype, device=dev)
+    st = _State(
+        A=A.contiguous(), lo=_rows_of(lo, b, n), hi=_rows_of(hi, b, n), z=z,
+        w=torch.zeros_like(z), H=H.contiguous(), c=c.contiguous(),
+        AtA=AtA.contiguous(), Lfix=L.contiguous(), g=g.contiguous(),
+        gn=gn.contiguous(), rho=rho, rho0=rho.clone(),
+        s=torch.ones(b, dtype=dtype, device=dev), pri=inf, dua=inf.clone(),
+        k=torch.zeros(b, dtype=torch.int32, device=dev),
+        conv=torch.zeros(b, dtype=torch.int32, device=dev),
+        part=torch.empty(plan.partials, dtype=dtype, device=dev),
+        alpha=float(over_relax), sqrt_n=sqrt_n, sqrt_r=float(r) ** 0.5,
+        adapt=bool(adapt_rho))
     rec = _log.recorder()
-    with torch.cuda.device(c.device):
+    with torch.cuda.device(dev):
         ref, row, step = _launcher(st, plan)
         for _ in range(max_iter):
             if rec is not None:
@@ -311,13 +301,5 @@ def admm_fused(H, c, op, lo, hi, AtA, rho, max_iter: int, over_relax,
                                    f"{e1 or e2}")
             if rec is not None:
                 rec.end(at)
-    admm_fused.launches += 2 * max_iter
-    if adapt_rho:
-        info = _bx.ADMMInfo(iterations=st.k, primal_residual=st.pri,
-                            dual_residual=st.dua)
-    else:
-        info = _bx._budget_info(op, st.g, lo, hi, st.sqrt_n, max_iter)
-    return _bx._unbatch(st.g, info, batched)
-
-
-admm_fused.launches = 0
+    _log.launched("admm", 2 * max_iter)
+    return st.g, st.k, st.pri, st.dua

@@ -33,9 +33,9 @@ one ``boxls.iter`` span an iteration.
 Which code runs an iteration: a CUDA float32 solve at ``tol == 0`` with an
 unsharded dense operator of at most 32 columns and no right factor (the
 fixed-budget serving batch) takes the two CUDA kernels of
-:mod:`.admm_cuda`, two launches an iteration, counted in the recorder's
-``boxls.kernel_solves``; every other solve runs the loop of
-:func:`_admm`.
+:mod:`.admm_cuda`, two launches an iteration (:func:`_admm_kernels`),
+counted in the recorder's ``boxls.kernel_solves``; every other solve runs
+the loop of :func:`_admm`.
 
 The batched (r, r) factorizations use ``torch.linalg.cholesky_ex`` (no
 error check, hence no host read) and ``torch.cholesky_solve``: the JAX
@@ -57,6 +57,7 @@ import torch
 from ..core.device import as_tensor
 from ..parallel import _comm
 from ..utils import logging as _log
+from . import admm_cuda
 from .chol import cholesky_nan
 
 # iterations between host reads of "every element stopped" when tol > 0
@@ -409,19 +410,42 @@ def _admm(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
     return _unbatch(g, info, batched)
 
 
+def _admm_kernels(H, c, op: _Operator, lo, hi, AtA, rho, max_iter,
+                  over_relax, adapt_rho, batched, n_rows=None):
+    """:func:`_admm` at ``tol == 0`` with each iteration as the two CUDA
+    kernels of :mod:`.admm_cuda`: the loop's warm start and first step
+    here, the iterations there, and the loop's :class:`ADMMInfo` from the
+    kernels' state (with ``adapt_rho=False`` the factor is computed once).
+    ``op`` an unsharded dense operator without a right factor; raises on
+    what the kernels do not take."""
+    plan = admm_cuda.plan_for(H, c, op.A, lo, hi, AtA, adapt_rho)
+    b, r = c.shape
+    rho = _penalty(H, AtA, rho, b, c.dtype, c.device)
+    L = _factorizer(H, AtA, r)(rho)
+    g, z, _ = _warm_start(c, op, lo, hi, L)
+    gn = _cho_solve(L, c + rho[:, None] * op.adj(z))
+    sqrt_n = _sqrt_rows(op, n_rows)
+    g, k, pri, dua = admm_cuda.admm_fused(
+        plan, H, c, op.A, lo, hi, AtA, L, g, z, gn, rho, max_iter,
+        over_relax, adapt_rho, sqrt_n)
+    if adapt_rho:
+        info = ADMMInfo(iterations=k, primal_residual=pri, dual_residual=dua)
+    else:
+        info = _budget_info(op, g, lo, hi, sqrt_n, max_iter)
+    return _unbatch(g, info, batched)
+
+
 def _solve(H, c, op: _Operator, lo, hi, AtA, rho, max_iter, tol, over_relax,
            adapt_rho, batched, n_rows=None):
     """One batched solve, in one ``boxls.admm`` span: by the CUDA kernel
-    pair of :mod:`.admm_cuda` where its predicate
+    pair (:func:`_admm_kernels`) where its predicate
     (:func:`.admm_cuda.takes`) holds, counted in ``boxls.kernel_solves``,
     else by :func:`_admm`."""
-    from . import admm_cuda
     with _log.span("boxls.admm"):
         if admm_cuda.takes(c, op, tol):
             _log.count("boxls.kernel_solves")
-            return admm_cuda.admm_fused(H, c, op, lo, hi, AtA, rho,
-                                        max_iter, over_relax, adapt_rho,
-                                        batched, n_rows)
+            return _admm_kernels(H, c, op, lo, hi, AtA, rho, max_iter,
+                                 over_relax, adapt_rho, batched, n_rows)
         return _admm(H, c, op, lo, hi, AtA, rho, max_iter, tol, over_relax,
                      adapt_rho, batched, n_rows)
 

@@ -45,19 +45,15 @@ import torch
 from .chol_cuda import P_MAX, chol_inv_logdet_cuda
 
 
-def kernel_path_wanted(dtype: torch.dtype, device) -> bool:
-    """Gate of the GP hot paths: the kernel takes CUDA float32 tensors
-    (the JAX gate: TPU backend and float32)."""
-    return dtype == torch.float32 and torch.device(device).type == "cuda"
-
-
-def chol_fits(B: int, p: int) -> bool:
-    """Whether the kernel takes a (B, p, p) batch: p ≤ 128.  The JAX
-    package's ``chol_fits_vmem`` also bounds B by a VMEM budget; Hopper
-    has no such budget (each matrix is its own thread block, with at most
-    132 KB of shared memory), so B has no counterpart here."""
-    del B
-    return p <= P_MAX
+def kernel_takes(dtype: torch.dtype, device, p: int) -> bool:
+    """Whether the kernel takes (..., p, p) stacks of ``dtype`` on
+    ``device``: CUDA float32 with p ≤ 128, the gate of the GP hot paths.
+    The JAX package's gate is the TPU backend and float32, with
+    ``chol_fits_vmem`` bounding the batch by a VMEM budget; Hopper has no
+    such budget (each matrix is its own thread block, with at most 132 KB
+    of shared memory), so the batch has no bound here."""
+    return (dtype == torch.float32 and torch.device(device).type == "cuda"
+            and p <= P_MAX)
 
 
 def _gram_sequential(Y: torch.Tensor) -> torch.Tensor:
@@ -140,7 +136,7 @@ def chol_inv_logdet_auto(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     lead = K.shape[:-2]
     p = K.shape[-1]
     K3 = K.reshape((-1, p, p))
-    if kernel_path_wanted(K.dtype, K.device) and chol_fits(K3.shape[0], p):
+    if kernel_takes(K.dtype, K.device, p):
         kinv, ld = chol_inv_logdet_cuda(K3)
     else:
         kinv, ld = chol_inv_logdet_torch(K3)

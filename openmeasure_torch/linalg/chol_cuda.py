@@ -1,5 +1,5 @@
 """Batched small-SPD inverse and log-determinant on the card: the CUDA
-kernel of ``csrc/chol.cu``, its wrapper and its launch counter.
+kernel of ``csrc/chol.cu`` and its wrapper.
 
 The kernel is the port of the TPU kernel ``_chol_kernel``
 (``openmeasure_tpu/linalg/chol_pallas.py:85``): one launch for a whole
@@ -82,39 +82,22 @@ def chol_inv_logdet_cuda(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     Raises on anything the kernel does not take (a CPU tensor, another
     dtype, p outside [1, 128], an empty batch) and when the launch is
-    refused.  ``chol_inv_logdet_cuda.launches`` counts the launches, and
-    so does the recorder's counter ``chol.kernel_launches`` while it is
-    on; a call while the stream captures a CUDA graph launches nothing
-    and is counted in ``chol_inv_logdet_cuda.captured`` instead, for the
-    graph's replays to count (:func:`count_launches`)."""
+    refused.  Each launch is counted in the recorder's
+    ``chol.kernel_launches`` (:func:`..utils.logging.launched`)."""
     _check(K)
     out = _launch(_library(), K)
-    if torch.cuda.is_current_stream_capturing():
-        chol_inv_logdet_cuda.captured += 1
-    else:
-        count_launches(1)
+    _log.launched("chol")
     return out
-
-
-chol_inv_logdet_cuda.launches = 0
-chol_inv_logdet_cuda.captured = 0
-
-
-def count_launches(n: int) -> None:
-    """Count ``n`` launches of the kernel: the calls that made them, or
-    the replays of a graph that captured them."""
-    chol_inv_logdet_cuda.launches += n
-    _log.count("chol.kernel_launches", n)
 
 
 def chol_phase_stamps(K: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Where a launch's time goes: one launch of ``csrc/chol.cu`` built
     with ``-DCHOL_STAMPS`` on K, for measurement only (nothing on a user's
-    path calls it, and it is not counted in ``chol_inv_logdet_cuda
-    .launches``).  Returns ``(K⁻¹, logdet, stamps)``, the outputs bit-equal
-    to :func:`chol_inv_logdet_cuda`'s and ``stamps`` int64 (B, 6, 2): for
-    each block, ``clock64()`` and the global timer (ns) at the start and at
+    path calls it, and it is not counted in ``chol.kernel_launches``).
+    Returns ``(K⁻¹, logdet, stamps)``, the outputs bit-equal to
+    :func:`chol_inv_logdet_cuda`'s and ``stamps`` int64 (B, 6, 2): for each
+    block, ``clock64()`` and the global timer (ns) at the start and at
     the end of the prologue, Schur, substitution, logdet and Gram phases.
 
     Each stamp follows a block barrier, six more than the shipped kernel

@@ -1,5 +1,5 @@
 """Greedy QRCP pivots on the card: the persistent cooperative CUDA kernel
-of ``csrc/qrcp.cu``, its launch plan, wrapper, launch counter and dispatch.
+of ``csrc/qrcp.cu``, its launch plan, wrapper and dispatch.
 
 One kernel is the port of both TPU kernels of
 ``openmeasure_tpu/linalg/qrcp_pallas.py`` (the in-VMEM ``_qrcp_kernel``
@@ -24,6 +24,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import logging as _log
 from .qrcp import _sweep, qrcp_pivots
 
 K_MAX = 128         # pivot cap of the kernel (and of the TPU kernels)
@@ -184,7 +185,7 @@ def _launch(A: torch.Tensor, k: int, row_scale: Optional[torch.Tensor]
             part_i.data_ptr(), Q.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"csrc/qrcp.cu launch failed: cudaError {err}")
-    qrcp_pivots_cuda.launches += 1
+    _log.launched("qrcp")
     return pivots, norms
 
 
@@ -197,13 +198,9 @@ def qrcp_pivots_cuda(A: torch.Tensor, k: int,
     k may exceed n: the steps past n pick column 0, as the plain sweep
     does.  Raises on anything the kernel does not take (a CPU tensor,
     another dtype, k outside [1, 128], overlapping strides, a row scale
-    that is not (r,)) and when a launch is refused.
-    ``qrcp_pivots_cuda.launches`` counts the calls that launched the kernel
-    (one launch each)."""
+    that is not (r,)) and when a launch is refused.  The launch is counted
+    in the recorder's ``qrcp.kernel_launches``."""
     return _launch(A, k, row_scale)[0]
-
-
-qrcp_pivots_cuda.launches = 0
 
 
 def _route(device_type: str, dtype: torch.dtype, k: int, shape: tuple,

@@ -54,8 +54,7 @@ import torch
 
 from ..core.device import DeviceLike, as_tensor, resolve_device, to_numpy
 from ..core.host64 import HOST
-from ..linalg.chol import (chol_fits, chol_inv_logdet, cholesky_nan,
-                           kernel_path_wanted)
+from ..linalg.chol import chol_inv_logdet, cholesky_nan, kernel_takes
 
 # Newton steps between host reads of "every lane is done"
 CHECK_EVERY = 8
@@ -236,7 +235,7 @@ def _level_nll(log10_theta, X, F, y):
     of lanes — the JAX gate: the explicit-inverse branch where the CUDA
     kernel takes the matrices (CUDA fp32, n ≤ 128), the Cholesky branch
     otherwise."""
-    if kernel_path_wanted(X.dtype, X.device) and chol_fits(1, X.shape[0]):
+    if kernel_takes(X.dtype, X.device, X.shape[0]):
         return _level_nll_inv(log10_theta, X, F, y)
     return _level_nll_chol(log10_theta, X, F, y)
 

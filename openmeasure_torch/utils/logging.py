@@ -40,12 +40,19 @@ The spans and counters of the port:
   on the card, one a block of ``unroll`` iterations).
 - counter ``boxls.kernel_solves``: the ADMM solves that ran the CUDA
   kernel pair of ``linalg/admm_cuda.py`` instead of the loop.
-- counter ``chol.kernel_launches``: the launches of ``csrc/chol.cu``
-  (``linalg/chol_cuda.py``).
 - counter ``gp.fused_iters``: the Adam iterations of ``gp/exact_gp.py``'s
   trainer that took the two-launch step (``csrc/chol.cu``, then
   ``csrc/gp_step.cu``; ``gp/gp_step.py``), counted on the host: how often
   that route engages.
+- counters ``chol.kernel_launches``, ``qrcp.kernel_launches``,
+  ``admm.kernel_launches``, ``gp_step.kernel_launches``: the launches of
+  the hand-written kernels of ``csrc/`` (:func:`launched`, called by their
+  wrappers in ``linalg/chol_cuda.py``, ``linalg/qrcp_cuda.py``,
+  ``linalg/admm_cuda.py`` and ``gp/gp_step.py``).
+
+A CUDA graph's capture launches nothing: while the trainer captures one
+(:func:`capture_tally`), the counts of the block go to a tally instead, which
+each replay of the graph adds again (:func:`count_all`).
 """
 
 from __future__ import annotations
@@ -165,10 +172,45 @@ def spanned(name: str):
     return wrap
 
 
+_TALLY: Optional[Dict[str, int]] = None   # the counts of a graph's capture
+
+
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` while the recorder is on."""
-    if _REC is not None:
-        _REC.counters[name] = _REC.counters.get(name, 0) + n
+    """Add ``n`` to counter ``name`` while the recorder is on; while a
+    CUDA graph is captured (:func:`capture_tally`), to the capture's tally
+    instead."""
+    counts = _TALLY if _TALLY is not None else \
+        None if _REC is None else _REC.counters
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + n
+
+
+def launched(kernel: str, n: int = 1) -> None:
+    """Count ``n`` launches of the hand-written kernel ``kernel``
+    (``"chol"``, ``"qrcp"``, ``"admm"``, ``"gp_step"``) in counter
+    ``<kernel>.kernel_launches``, as :func:`count` does."""
+    count(kernel + ".kernel_launches", n)
+
+
+@contextlib.contextmanager
+def capture_tally() -> Iterator[Dict[str, int]]:
+    """For the capture of a CUDA graph, which runs nothing: yields the
+    tally that holds the block's counts in place of the recorder, for each
+    replay of the graph to add (:func:`count_all`)."""
+    global _TALLY
+    outer, _TALLY = _TALLY, {}
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = outer
+
+
+def count_all(tally: Dict[str, int]) -> None:
+    """Add each count of ``tally``, as :func:`count` does: a captured
+    graph's counts, once a replay."""
+    if _REC is not None or _TALLY is not None:
+        for name, n in tally.items():
+            count(name, n)
 
 
 def _write_spans(rec: Recording, path: str, base_ns: int) -> None:

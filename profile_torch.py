@@ -738,9 +738,9 @@ def main() -> int:
                   f"{gemm_ms:.5f} ms device time (median of {gemm_n})",
                   flush=True)
     if "mfk" in sections:
-        from openmeasure_torch.linalg import chol_cuda
         from openmeasure_torch.multifi import mfk as mfk_mod
         from openmeasure_torch.pipelines import mfk_end_to_end
+        from openmeasure_torch.utils import logging as tlog
         sys.path.insert(0, str(ROOT))
         from chip_smoke import mfk_problem
         args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
@@ -763,15 +763,16 @@ def main() -> int:
             mfk_end_to_end(*args)          # warm-up, outside the counts
             sync()
             counts.clear()
-            chol_cuda.chol_inv_logdet_cuda.launches = 0
-            by_name, window = breakdown(lambda: mfk_end_to_end(*args), top=15)
+            with tlog.recording() as rec:
+                by_name, window = breakdown(lambda: mfk_end_to_end(*args),
+                                            top=15)
         finally:
             for name, fn in real.items():
                 setattr(mfk_mod, name, fn)
         # breakdown runs the call twice (a warm-up, then the trace)
         steps = counts["_value_grad_hess"] // 2
         evals = counts["_level_nll_inv"] // 2
-        chol_n = chol_cuda.chol_inv_logdet_cuda.launches // 2
+        chol_n = rec.counters.get("chol.kernel_launches", 0) // 2
         total = sum(v[0] for v in by_name.values())
         launches = sum(v[1] for k, v in by_name.items()
                        if "memcpy" not in k.lower()

@@ -1,8 +1,9 @@
 """The fixed-budget ADMM's kernel pair (``csrc/admm.cu`` through
 ``openmeasure_torch/linalg/admm_cuda.py``) on the card: against the loop
 of ``linalg/boxls.py``, its plain version, at the serving batch's shape
-(b = 50 frames, n = 165,258 rows, r = 14) and at ragged ones; its launch
-count; the recorder's ``boxls.kernel_solves``; a solve with no host read;
+(b = 50 frames, n = 165,258 rows, r = 14) and at ragged ones; the
+recorder's ``admm.kernel_launches`` and ``boxls.kernel_solves``; a solve
+with no host read;
 the same bits for the same batch; a solve on a card other than the
 current one.
 
@@ -69,7 +70,8 @@ def _solve(P, adapt, iters, how):
     if how == "loop":
         return T._admm(H, c, op, lo, hi, AtA, None, iters, 0.0, 1.6, adapt,
                        True)
-    return K.admm_fused(H, c, op, lo, hi, AtA, None, iters, 1.6, adapt, True)
+    return T._admm_kernels(H, c, op, lo, hi, AtA, None, iters, 1.6, adapt,
+                           True)
 
 
 SHAPES = [
@@ -126,17 +128,17 @@ def test_launches_and_kernel_solves(card, adapt):
     kernels'; one ``boxls.iter`` span an iteration."""
     H, c, A, lo, hi, AtA = (x.float() for x in _problem(card, 3, 50, 14,
                                                           20000))
-    before = K.admm_fused.launches
     with L.recording() as rec:
         g, _ = T.admm_box_qp(H, c, A, lo, hi, AtA=AtA, max_iter=77, tol=0.0,
                              adapt_rho=adapt)
     torch.cuda.synchronize()
-    assert K.admm_fused.launches - before == 2 * 77
+    assert rec.counters.get("admm.kernel_launches") == 2 * 77
     assert rec.counters.get("boxls.kernel_solves") == 1
     assert [s.name for s in rec.spans].count("boxls.iter") == 77
     with L.recording() as rec:
         T.admm_box_qp(H, c, A, lo, hi, AtA=AtA, max_iter=77, tol=1e-9)
     assert "boxls.kernel_solves" not in rec.counters
+    assert "admm.kernel_launches" not in rec.counters
 
 
 @pytest.mark.cuda
@@ -165,12 +167,14 @@ def test_kernels_refuse_what_they_do_not_take(card):
     H, c, A, lo, hi, AtA = (x.float() for x in _problem(card, 8, 3, 4, 100))
     op = T._Operator(A)
     with pytest.raises(ValueError):
-        K.admm_fused(H.double(), c.double(), T._Operator(A.double()),
-                     lo.double(), hi.double(), AtA.double(), None, 5, 1.6,
-                     True, True)
+        T._admm_kernels(H.double(), c.double(), T._Operator(A.double()),
+                        lo.double(), hi.double(), AtA.double(), None, 5, 1.6,
+                        True, True)
     with pytest.raises(ValueError):
-        K.admm_fused(H, c, op, lo[:50], hi[:50], AtA, None, 5, 1.6, True,
-                     True)
+        T._admm_kernels(H, c, op, lo[:50], hi[:50], AtA, None, 5, 1.6, True,
+                        True)
+    with pytest.raises(ValueError):
+        K.plan_for(H, c, A, lo, hi, AtA[:2], True)
 
 
 @pytest.mark.cuda

@@ -63,21 +63,21 @@ def _loop(H, c, A, lo, hi, AtA, adapt, iters=ITERS):
 def test_frame_with_zero_residuals_stays_frozen():
     """A frame with c = 0 and 0 inside its box: g, z and w stay 0, so
     both residuals are exactly 0 at the first iteration and the frame
-    stops there (k = 1) while the others run the whole budget; a CPU solve
-    through ``admm_fused`` (the plain version) gives the same."""
+    stops there (k = 1) while the others run the whole budget.  The
+    kernels, which keep it on the card (``tests/test_torch_admm_cuda.py``),
+    have no CPU version: a CPU solve sent to them raises."""
     H, c, A, lo, hi, AtA = _problem(11, 7, 14, 400, False)
     c[3] = 0.0
     for dtype in (torch.float64, torch.float32):
         P = [x.to(dtype) for x in (H, c, A, lo, hi, AtA)]
         g, info = _loop(*P, True)
-        gf, inf_ = K.admm_fused(*P[:2], T._Operator(P[2]), *P[3:], None,
-                                ITERS, 1.6, True, True)
-        for out in (info, inf_):
-            assert out.iterations.tolist() == [ITERS] * 3 + [1] + [ITERS] * 3
-            assert float(out.primal_residual[3]) == 0.0
-            assert float(out.dual_residual[3]) == 0.0
+        assert info.iterations.tolist() == [ITERS] * 3 + [1] + [ITERS] * 3
+        assert float(info.primal_residual[3]) == 0.0
+        assert float(info.dual_residual[3]) == 0.0
         assert torch.equal(g[3], torch.zeros_like(g[3]))
-        assert torch.equal(g, gf)
+        with pytest.raises(ValueError, match="CUDA float32"):
+            T._admm_kernels(*P[:2], T._Operator(P[2]), *P[3:], None, ITERS,
+                            1.6, True, True)
 
 
 @pytest.mark.parametrize("kind,want", [
@@ -166,11 +166,18 @@ class _OnCard:
 
 @pytest.fixture
 def card_like(monkeypatch):
-    """The predicate answers as if CPU tensors were on a card: solves it
-    takes then run ``admm_fused``, which on the CPU is the loop."""
+    """The predicate answers as if CPU tensors were on a card, and the
+    solves it takes run the kernels' plain version, the loop at
+    ``tol == 0``, in place of the kernels, which run only on a card."""
     takes = K.takes
     monkeypatch.setattr(K, "takes",
                         lambda c, op, tol: takes(_OnCard(c), op, tol))
+    monkeypatch.setattr(
+        T, "_admm_kernels",
+        lambda H, c, op, lo, hi, AtA, rho, max_iter, over_relax, adapt,
+        batched, n_rows=None: T._admm(H, c, op, lo, hi, AtA, rho, max_iter,
+                                      0.0, over_relax, adapt, batched,
+                                      n_rows))
     return takes
 
 

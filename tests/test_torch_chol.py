@@ -30,6 +30,7 @@ from jax.experimental import pallas as pl
 from openmeasure_tpu.linalg import chol_pallas as CP
 from openmeasure_torch.linalg import chol as TC
 from openmeasure_torch.linalg import chol_cuda as TCC
+from openmeasure_torch.utils import logging as L
 
 
 def _spd(B, p, seed, dtype=np.float64):
@@ -139,24 +140,25 @@ def test_plain_reads_only_the_lower_triangle():
 def test_auto_on_cpu_takes_the_cholesky_formulation():
     """CPU tensors never reach the kernel wrapper (which raises on them):
     the dispatch sends them, float32 or float64, to the Cholesky branch,
-    and keeps leading batch dims."""
-    before = TCC.chol_inv_logdet_cuda.launches
+    and keeps leading batch dims; the recorder counts no launch."""
     K = torch.as_tensor(_spd(6, 9, seed=1)).reshape(2, 3, 9, 9)
-    for Kx in (K, K.float()):
-        ka, la = TC.chol_inv_logdet_auto(Kx)
-        kb, lb = TC.chol_inv_logdet_torch(Kx)
-        assert ka.shape == (2, 3, 9, 9) and la.shape == (2, 3)
-        assert torch.equal(ka, kb) and torch.equal(la, lb)
-    assert TCC.chol_inv_logdet_cuda.launches == before
+    with L.recording() as rec:
+        for Kx in (K, K.float()):
+            ka, la = TC.chol_inv_logdet_auto(Kx)
+            kb, lb = TC.chol_inv_logdet_torch(Kx)
+            assert ka.shape == (2, 3, 9, 9) and la.shape == (2, 3)
+            assert torch.equal(ka, kb) and torch.equal(la, lb)
+    assert "chol.kernel_launches" not in rec.counters
     with pytest.raises(ValueError, match="CUDA tensor"):
         TCC.chol_inv_logdet_cuda(K[0])
 
 
 def test_gate():
-    assert TC.kernel_path_wanted(torch.float32, "cuda")
-    assert not TC.kernel_path_wanted(torch.float64, "cuda")
-    assert not TC.kernel_path_wanted(torch.float32, "cpu")
-    assert TC.chol_fits(10 ** 6, 128) and not TC.chol_fits(1, 129)
+    assert TC.kernel_takes(torch.float32, "cuda", 41)
+    assert TC.kernel_takes(torch.float32, torch.device("cuda", 1), 128)
+    assert not TC.kernel_takes(torch.float64, "cuda", 41)
+    assert not TC.kernel_takes(torch.float32, "cpu", 41)
+    assert not TC.kernel_takes(torch.float32, "cuda", 129)
 
 
 def test_non_spd_gives_nan_not_an_exception():

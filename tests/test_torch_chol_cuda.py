@@ -24,6 +24,7 @@ import torch
 
 from openmeasure_torch.linalg import chol as TC
 from openmeasure_torch.linalg import chol_cuda as TCC
+from openmeasure_torch.utils import logging as L
 
 KINV_REL, LOGDET_ABS = 5e-6, 5e-3
 
@@ -58,10 +59,10 @@ def _equal(got, want):
 
 def _kernel_vs_plain_versions(K):
     B, p, _ = K.shape
-    before = TCC.chol_inv_logdet_cuda.launches
-    got = TCC.chol_inv_logdet_cuda(K)
+    with L.recording() as rec:
+        got = TCC.chol_inv_logdet_cuda(K)
     torch.cuda.synchronize()
-    assert TCC.chol_inv_logdet_cuda.launches == before + 1
+    assert rec.counters == {"chol.kernel_launches": 1}
     assert got[0].shape == (B, p, p) and got[1].shape == (B,)
     _equal(got, TC.chol_inv_logdet_plain(K))
     _close(got, TC.chol_inv_logdet_torch(K), KINV_REL, LOGDET_ABS)
@@ -149,10 +150,10 @@ def test_phase_stamps_build(card):
     shipped kernel's bit for bit, each block's six stamps never decrease,
     and the launch is not counted."""
     K = _spd(3, 41, seed=19, device=card)
-    before = TCC.chol_inv_logdet_cuda.launches
-    kinv, ld, st = TCC.chol_phase_stamps(K)
+    with L.recording() as rec:
+        kinv, ld, st = TCC.chol_phase_stamps(K)
     torch.cuda.synchronize()
-    assert TCC.chol_inv_logdet_cuda.launches == before
+    assert "chol.kernel_launches" not in rec.counters
     _equal((kinv, ld), TCC.chol_inv_logdet_cuda(K))
     st = st.cpu()
     assert st.shape == (3, 6, 2)
@@ -166,17 +167,17 @@ def test_auto_and_autograd_go_through_the_kernel(card):
     dims; float64 or p > 128 takes the Cholesky formulation on the card;
     the autograd Function's forward is one launch."""
     K = _spd(6, 20, seed=1, device=card).reshape(2, 3, 20, 20)
-    before = TCC.chol_inv_logdet_cuda.launches
-    kinv, ld = TC.chol_inv_logdet_auto(K)
-    assert TCC.chol_inv_logdet_cuda.launches == before + 1
-    assert kinv.shape == (2, 3, 20, 20) and ld.shape == (2, 3)
-    TC.chol_inv_logdet_auto(K.double())
-    TC.chol_inv_logdet_auto(_spd(1, 130, seed=2, device=card))
-    assert TCC.chol_inv_logdet_cuda.launches == before + 1
-    Kg = K.clone().requires_grad_(True)
-    kinv, ld = TC.chol_inv_logdet(Kg)
-    (g,) = torch.autograd.grad(ld.sum(), Kg)
-    assert TCC.chol_inv_logdet_cuda.launches == before + 2
+    with L.recording() as rec:
+        kinv, ld = TC.chol_inv_logdet_auto(K)
+        assert rec.counters["chol.kernel_launches"] == 1
+        assert kinv.shape == (2, 3, 20, 20) and ld.shape == (2, 3)
+        TC.chol_inv_logdet_auto(K.double())
+        TC.chol_inv_logdet_auto(_spd(1, 130, seed=2, device=card))
+        assert rec.counters["chol.kernel_launches"] == 1
+        Kg = K.clone().requires_grad_(True)
+        kinv, ld = TC.chol_inv_logdet(Kg)
+        (g,) = torch.autograd.grad(ld.sum(), Kg)
+    assert rec.counters["chol.kernel_launches"] == 2
     assert float(torch.max(torch.abs(g - kinv.detach()))) == 0.0
 
 
@@ -202,53 +203,49 @@ def test_gp_paths_on_card_go_through_the_kernel(card):
     from openmeasure_torch.pipelines import gpr_end_to_end
     d = make_flame_dataset(n_cells=2000, n_features=3, m_train=20, m_test=3,
                            dtype=np.float32)
-    before = TCC.chol_inv_logdet_cuda.launches
-    res = gpr_end_to_end(d["X_train"], d["P_train"], d["P_test"],
-                         d["X_test"], n_features=3, r=6, max_iter=200)
+    with L.recording() as rec:
+        res = gpr_end_to_end(d["X_train"], d["P_train"], d["P_test"],
+                             d["X_test"], n_features=3, r=6, max_iter=200)
     torch.cuda.synchronize()
-    assert TCC.chol_inv_logdet_cuda.launches > before
+    assert rec.counters["chol.kernel_launches"] > 0
     assert res.X_rec.device.type == "cuda"
     d64 = make_flame_dataset(n_cells=2000, n_features=3, m_train=20,
                              m_test=3, dtype=np.float64)
     ref = gpr_end_to_end(d64["X_train"], d64["P_train"], d64["P_test"],
                          d64["X_test"], n_features=3, r=6, max_iter=200)
     assert abs(float(res.nrmse) - float(ref.nrmse)) <= 0.1 * float(ref.nrmse)
-    before = TCC.chol_inv_logdet_cuda.launches
     g = GPR(d["X_train"], 3, d["xyz"], d["P_train"], "MultiTask")
     g.fit(select_modes="number", n_modes=6)
-    g.train(max_iter=50)
+    with L.recording() as rec:
+        g.train(max_iter=50)
     a, s = g.predict(d["P_test"])
-    assert TCC.chol_inv_logdet_cuda.launches > before
+    assert rec.counters["chol.kernel_launches"] > 0
     assert bool(torch.isfinite(g.reconstruct(a)).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gpr_type", ["SingleTask", "MultiTask"])
-def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type):
-    """On the card the Adam loop replays its oracle's iteration as a CUDA
-    graph after a first eager block: the trained state equals, bit for
-    bit, the same static-state iterations run eagerly (each replay's step
-    run as plain launches), and the kernel's launch counter counts the
-    replays' launches, one an iteration.  The SingleTask model trains with
-    a LinearMean, which keeps the oracle's step (a ConstantMean takes the
-    fused step of ``csrc/gp_step.cu``, ``tests/test_torch_gp_step_cuda.py``)."""
+@pytest.mark.parametrize("gpr_type,mean", [
+    pytest.param("SingleTask", "LinearMean", id="SingleTask"),
+    pytest.param("MultiTask", None, id="MultiTask"),
+    pytest.param("SingleTask", "ConstantMean", id="SingleTask-fused")])
+def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type,
+                                              mean):
+    """On the card the Adam loop replays its iteration as a CUDA graph
+    after a first eager block: the trained state equals, bit for bit, the
+    same iterations run eagerly (each replay's step run as plain
+    launches), and the recorder counts the replays' launches of
+    ``csrc/chol.cu``, one an iteration.  A LinearMean and the MultiTask
+    model keep the oracle's step; a ConstantMean takes the fused step of
+    ``csrc/gp_step.cu``, which launches once more than there are
+    iterations (the first build)."""
     from openmeasure_torch import GPR
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
     from openmeasure_torch.gp import exact_gp as E
-    from openmeasure_torch.gp.kernels import LinearMean
+    from openmeasure_torch.gp import kernels as GK
 
-    class Eager(E._StepGraph):
-        def __init__(self, step, state):
-            self.step, self.state, self.launches = step, state, 0
-            self.c = [torch.zeros((), dtype=state[3].dtype, device=card)
-                      for _ in range(2)]
-
-        def replay(self, c1, c2):
-            self.c[0].fill_(c1)
-            self.c[1].fill_(c2)
-            out = E._flat_state(self.step(self.state, *self.c))
-            for s, o in zip(E._flat_state(self.state), out):
-                s.copy_(o)
+    class Eager:
+        def __init__(self, run):
+            self.step = run.step
 
     d = make_flame_dataset(n_cells=2000, n_features=3, m_train=20, m_test=3,
                            dtype=np.float32)
@@ -256,19 +253,24 @@ def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type):
     def trained():
         g = GPR(d["X_train"], 3, d["xyz"], d["P_train"], gpr_type)
         g.fit(select_modes="number", n_modes=6)
-        before = TCC.chol_inv_logdet_cuda.launches
-        g.train(max_iter=203, mean=LinearMean() if gpr_type == "SingleTask"
-                else None)
+        with L.recording() as rec:
+            g.train(max_iter=203,
+                    mean=None if mean is None else getattr(GK, mean)())
         torch.cuda.synchronize()
-        return g, TCC.chol_inv_logdet_cuda.launches - before
+        return g, rec.counters
 
-    g_graph, launched = trained()
-    monkeypatch.setattr(E, "_StepGraph", Eager)
-    g_eager, _ = trained()
+    g_graph, counted = trained()
+    monkeypatch.setattr(E, "_Replay", Eager)
+    g_eager, counted_eager = trained()
     for a, b in zip(E.tree_leaves(g_graph.params),
                     E.tree_leaves(g_eager.params)):
         assert torch.equal(a, b)
     assert torch.equal(g_graph._final_loss, g_eager._final_loss)
     assert torch.equal(g_graph._iterations, g_eager._iterations)
-    steps = int(g_graph._iterations.max())
-    assert launched == min(-(-steps // 4) * 4, 203)
+    assert counted == counted_eager
+    steps = min(-(-int(g_graph._iterations.max()) // 4) * 4, 203)
+    assert counted["chol.kernel_launches"] == steps
+    fused = mean == "ConstantMean"
+    assert counted.get("gp.fused_iters", 0) == (steps if fused else 0)
+    assert counted.get("gp_step.kernel_launches", 0) == \
+        (steps + 1 if fused else 0)

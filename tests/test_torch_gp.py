@@ -182,7 +182,7 @@ def branch(request, monkeypatch):
     formulation) and the port's with the plain version of the kernel."""
     if request.param == "explicit-inverse":
         monkeypatch.setattr(JE, "_use_kernel_path", lambda n, dt: True)
-        monkeypatch.setattr(TE, "_use_kernel_path", lambda n, dt, dev: True)
+        monkeypatch.setattr(TE, "kernel_takes", lambda dt, dev, n: True)
         monkeypatch.setattr(TC, "chol_inv_logdet_auto",
                             TC.chol_inv_logdet_plain)
     return request.param

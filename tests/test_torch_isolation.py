@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points default to the card and refuse to run without one."""
 
+import ast
 import os
 import re
 import subprocess
@@ -150,3 +151,39 @@ def test_port_reads_no_file_of_the_jax_package():
         # a path into the JAX package, as a string or joined with `/`
         assert "openmeasure_tpu/native" not in text, path
         assert 'openmeasure_tpu" /' not in text, path
+
+
+def _imports(tree):
+    """The modules that the import statements under ``tree`` name, each as
+    written, ``from . import boxls`` as ``.boxls``."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            yield base
+            yield from (base.rstrip(".") + "." + a.name if node.module
+                        else base + a.name for a in node.names)
+
+
+@pytest.mark.parametrize("wrapper,plain", [
+    ("linalg/admm_cuda.py", "linalg/boxls.py"),
+    ("gp/gp_step.py", "gp/exact_gp.py")])
+def test_kernel_wrapper_is_a_leaf_of_its_plain_module(wrapper, plain):
+    """A kernel's wrapper imports nothing from the plain module that runs
+    it, and that module imports the wrapper at its top, not inside a
+    function: the imports point one way."""
+    pkg = ROOT / "openmeasure_torch"
+    plain_name = Path(plain).stem
+    wrapper_name = Path(wrapper).stem
+    names = set(_imports(ast.parse((pkg / wrapper).read_text())))
+    assert not {n for n in names if n.split(".")[-1] == plain_name}, names
+    tree = ast.parse((pkg / plain).read_text())
+    inner = {n for f in ast.walk(tree)
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for n in _imports(f)}
+    assert not {n for n in inner if n.split(".")[-1] == wrapper_name}, inner
+    top = {n for stmt in tree.body
+           if isinstance(stmt, (ast.Import, ast.ImportFrom))
+           for n in _imports(stmt)}
+    assert any(n.split(".")[-1] == wrapper_name for n in top), top

@@ -48,13 +48,13 @@ def test_world_of_one_is_nccl_on_the_card(mesh):
 
 @pytest.mark.cuda
 def test_sharded_spr_step_equal_and_through_the_kernel(mesh, data):
-    from openmeasure_torch.linalg import qrcp_cuda
     from openmeasure_torch.parallel import sharded as S
+    from openmeasure_torch.utils import logging as L
     Xb, Xtb = (S.shard_snapshots(data[k], 9, mesh)
                for k in ("X_train", "X_test"))
-    qrcp_cuda.qrcp_pivots_cuda.launches = 0
-    got = S.sharded_spr_step(Xb, Xtb, 8, mesh=mesh)
-    assert qrcp_cuda.qrcp_pivots_cuda.launches == 1
+    with L.recording() as rec:
+        got = S.sharded_spr_step(Xb, Xtb, 8, mesh=mesh)
+    assert rec.counters["qrcp.kernel_launches"] == 1
     assert _equal(got, S.sharded_spr_step(Xb, Xtb, 8))
     lo = data["X_train"].reshape(9, 3000, -1).min(axis=(1, 2)) - 1.0
     hi = data["X_train"].reshape(9, 3000, -1).max(axis=(1, 2)) + 1.0
@@ -66,14 +66,14 @@ def test_sharded_spr_step_equal_and_through_the_kernel(mesh, data):
 @pytest.mark.cuda
 def test_sharded_gpr_train_equal_and_through_the_kernel(mesh, data):
     from openmeasure_torch.gp import exact_gp as E
-    from openmeasure_torch.linalg import chol_cuda
     from openmeasure_torch.parallel import sharded as S
+    from openmeasure_torch.utils import logging as L
     g = torch.Generator().manual_seed(0)
     P0 = torch.randn((20, 3), generator=g).cuda()
     Vr = torch.sin(torch.randn((20, 4), generator=g)).cuda()
-    chol_cuda.chol_inv_logdet_cuda.launches = 0
-    res = S.sharded_gpr_train(mesh, P0, Vr, max_iter=60)
-    assert chol_cuda.chol_inv_logdet_cuda.launches >= 1
+    with L.recording() as rec:
+        res = S.sharded_gpr_train(mesh, P0, Vr, max_iter=60)
+    assert rec.counters["chol.kernel_launches"] >= 1
     mean, kern, lik = S._specs()
     Y = Vr.T.contiguous()
     ref = E.adam_early_stop(

@@ -26,8 +26,8 @@ import torch
 from openmeasure_torch import SPR
 from openmeasure_torch.datasets.synthetic import make_flame_dataset
 from openmeasure_torch.linalg import qrcp as plain
-from openmeasure_torch.linalg import qrcp_cuda
 from openmeasure_torch.sensing import dg, gem, vector
+from openmeasure_torch.utils import logging as L
 
 OBJ_REL = 1e-3
 NF, R = 9, 10
@@ -127,9 +127,9 @@ def dtoh_copies(fn):
 @pytest.mark.cuda
 def test_dg_phase1_is_one_kernel_launch_equal_to_the_plain_sweep(basis):
     U32, _ = basis
-    qrcp_cuda.qrcp_pivots_cuda.launches = 0
-    sel = dg.dg_select(U32, 2 * R)
-    assert qrcp_cuda.qrcp_pivots_cuda.launches == 1
+    with L.recording() as rec:
+        sel = dg.dg_select(U32, 2 * R)
+    assert rec.counters["qrcp.kernel_launches"] == 1
     want = plain.qrcp_pivots(U32.T, R).cpu().numpy()
     np.testing.assert_array_equal(sel[:R], want)
     assert len(set(sel.tolist())) == 2 * R

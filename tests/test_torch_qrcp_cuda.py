@@ -21,6 +21,7 @@ import torch
 
 from openmeasure_torch.linalg import qrcp as TQ
 from openmeasure_torch.linalg import qrcp_cuda as TQC
+from openmeasure_torch.utils import logging as L
 
 
 @pytest.fixture
@@ -66,9 +67,9 @@ def test_kernel_takes_tall_panels(card, r):
     s = torch.as_tensor(np.geomspace(1.0, 1e4, r), dtype=torch.float32,
                         device=card)
     _kernel_vs_plain(A, 4, s)
-    before = TQC.qrcp_pivots_cuda.launches
-    TQC.qrcp_pivots_auto(A, 4, row_scale=s)
-    assert TQC.qrcp_pivots_cuda.launches == before + 1
+    with L.recording() as rec:
+        TQC.qrcp_pivots_auto(A, 4, row_scale=s)
+    assert rec.counters["qrcp.kernel_launches"] == 1
 
 
 @pytest.mark.cuda
@@ -208,13 +209,14 @@ def test_auto_dispatch_on_card(card):
     its jnp sweep."""
     rng = np.random.default_rng(10)
     A = torch.as_tensor(rng.standard_normal((130, 400)), device=card)
-    before = TQC.qrcp_pivots_cuda.launches
-    p64 = TQC.qrcp_pivots_auto(A, 12)
-    p130 = TQC.qrcp_pivots_auto(A.float(), 130)
-    assert TQC.qrcp_pivots_cuda.launches == before
+    with L.recording() as rec:
+        p64 = TQC.qrcp_pivots_auto(A, 12)
+        p130 = TQC.qrcp_pivots_auto(A.float(), 130)
+    assert "qrcp.kernel_launches" not in rec.counters
     assert p64.device.type == "cuda" and len(set(p130.tolist())) == 130
-    p32 = TQC.qrcp_pivots_auto(A.float(), 12)
-    assert TQC.qrcp_pivots_cuda.launches == before + 1
+    with L.recording() as rec:
+        p32 = TQC.qrcp_pivots_auto(A.float(), 12)
+    assert rec.counters["qrcp.kernel_launches"] == 1
     np.testing.assert_array_equal(p32.cpu().numpy(),
                                   TQ.qrcp_pivots(A.float(), 12).cpu().numpy())
 
@@ -250,9 +252,9 @@ def test_auto_returns_where_the_cpu_path_returns(card):
     rng = np.random.default_rng(15)
     A = torch.as_tensor(rng.standard_normal((14, 10)), dtype=torch.float32,
                         device=card)
-    before = TQC.qrcp_pivots_cuda.launches
-    got = TQC.qrcp_pivots_auto(A, 12)
-    assert TQC.qrcp_pivots_cuda.launches == before + 1
+    with L.recording() as rec:
+        got = TQC.qrcp_pivots_auto(A, 12)
+    assert rec.counters["qrcp.kernel_launches"] == 1
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   TQ.qrcp_pivots(A, 12).cpu().numpy())
     base = torch.as_tensor(rng.standard_normal(3000), dtype=torch.float32,
@@ -263,9 +265,9 @@ def test_auto_returns_where_the_cpu_path_returns(card):
               torch.as_strided(base, (6, 500), (7, 1))):
         with pytest.raises(ValueError, match="non-overlapping"):
             TQC.qrcp_pivots_cuda(v, 6)
-        before = TQC.qrcp_pivots_cuda.launches
-        got = TQC.qrcp_pivots_auto(v, 6, row_scale=s)
-        assert TQC.qrcp_pivots_cuda.launches == before + 1
+        with L.recording() as rec:
+            got = TQC.qrcp_pivots_auto(v, 6, row_scale=s)
+        assert rec.counters["qrcp.kernel_launches"] == 1
         np.testing.assert_array_equal(
             got.cpu().numpy(), TQ.qrcp_pivots(v * s[:, None], 6).cpu().numpy())
 
@@ -276,9 +278,9 @@ def test_spr_end_to_end_on_card_goes_through_the_kernel(card):
     from openmeasure_torch.pipelines import spr_end_to_end
     d = make_flame_dataset(n_cells=2000, n_features=3, m_train=20, m_test=3,
                            dtype=np.float32)
-    before = TQC.qrcp_pivots_cuda.launches
-    res = spr_end_to_end(d["X_train"], d["X_test"], n_features=3, r=10)
+    with L.recording() as rec:
+        res = spr_end_to_end(d["X_train"], d["X_test"], n_features=3, r=10)
     torch.cuda.synchronize()
-    assert TQC.qrcp_pivots_cuda.launches == before + 1
+    assert rec.counters["qrcp.kernel_launches"] == 1
     assert res.X_rec.device.type == "cuda"
     assert float(res.nrmse) < 1e-3

@@ -152,6 +152,41 @@ def test_fit_stage_spans(refine):
     assert rec.counters == {}
 
 
+def test_kernel_launch_counter():
+    """The one launch counter of the hand-written kernels counts only
+    while the recorder is on, as ``<kernel>.kernel_launches``; during a
+    graph's capture it fills the capture's tally instead, which each
+    replay adds again."""
+    tlog.launched("chol")
+    with tlog.recording() as rec:
+        tlog.launched("chol")
+        tlog.launched("qrcp")
+        tlog.launched("admm", 2 * 300)
+        tlog.launched("gp_step")
+        tlog.launched("chol")
+        with tlog.capture_tally() as tally:
+            tlog.launched("chol")
+            tlog.launched("gp_step")
+            tlog.count("gp.fused_iters")
+        assert rec.counters == {"chol.kernel_launches": 2,
+                                "qrcp.kernel_launches": 1,
+                                "admm.kernel_launches": 600,
+                                "gp_step.kernel_launches": 1}
+        for _ in range(3):
+            tlog.count_all(tally)
+    assert tally == {"chol.kernel_launches": 1, "gp_step.kernel_launches": 1,
+                     "gp.fused_iters": 1}
+    assert rec.counters == {"chol.kernel_launches": 5,
+                            "qrcp.kernel_launches": 1,
+                            "admm.kernel_launches": 600,
+                            "gp_step.kernel_launches": 4,
+                            "gp.fused_iters": 3}
+    tlog.launched("qrcp")
+    tlog.count_all(tally)
+    assert tlog.recorder() is None
+    assert rec.counters["qrcp.kernel_launches"] == 1
+
+
 @pytest.mark.parametrize("max_iter", [1, 4, 10])
 def test_gpr_flow_spans(max_iter):
     """A GP ROM flow: one root span a method, in order; ``gpr.train``
