@@ -1,7 +1,10 @@
 """The fixed-budget ADMM's kernel pair (``csrc/admm.cu`` through
 ``openmeasure_torch/linalg/admm_cuda.py``) on the card: against the loop
 of ``linalg/boxls.py``, its plain version, at the serving batch's shape
-(b = 50 frames, n = 165,258 rows, r = 14) and at ragged ones; the
+(b = 50 frames, n = 165,258 rows, r = 14), with shared and per-frame
+bounds, and at ragged ones (row counts off the copies' 16-byte grain,
+frame counts that split strips or that no warp count divides, the 3D
+rows); each case twice, for the same bits; the
 recorder's ``admm.kernel_launches`` and ``boxls.kernel_solves``; a solve
 with no host read;
 the same bits for the same batch; a solve on a card other than the
@@ -81,6 +84,10 @@ SHAPES = [
     (1, 33, 1, False),
     (13, 5003, 32, False),
     (20, 40000, 9, True),
+    (33, 40001, 14, False),         # n = 1 mod 4: a padded last tile
+    (4, 1723599, 14, True),         # n = 3 mod 4, 3D rows: 6 waves of strips
+    (17, 20011, 14, False),         # 17 frames: no consumer-warp count divides
+    (50, 165258, 14, True),         # per-frame bounds at the serving shape
 ]
 
 
@@ -94,6 +101,8 @@ def test_kernels_against_plain_and_loop(card, adapt, b, n, r, batched):
     g64, _ = _solve(P64, adapt, iters, "loop")
     g32, i32 = _solve(P32, adapt, iters, "loop")
     gk, ik = _solve(P32, adapt, iters, "kernel")
+    again, _ = _solve(P32, adapt, iters, "kernel")
+    assert torch.equal(gk, again)                  # the same bits twice
     scale = float(g64.abs().max())
     bound = 2.0 * float((g32.double() - g64).abs().max()) + 100 * U * scale
     assert float((gk.double() - g64).abs().max()) <= bound
@@ -160,6 +169,39 @@ def test_no_host_read_and_same_bits(card, adapt):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adapt", [True, False])
+def test_measuring_build_keeps_the_bits(card, adapt):
+    """The ``-DADMM_STAMPS`` build (``admm_cuda.row_pass_stamps``) runs the
+    shipped build's iterations to the same bits, and each block's stamps
+    are in order: the producer's last issue and every consumer's end after
+    the block's entry, no negative cycle count."""
+    H, c, A, lo, hi, AtA = (x.float() for x in _problem(card, 12, 13, 14,
+                                                          20000))
+    b, r = c.shape
+    op = T._Operator(A)
+    plan = K.plan_for(H, c, A, lo, hi, AtA, adapt)
+    rho = T._penalty(H, AtA, None, b, c.dtype, c.device)
+    L = T._factorizer(H, AtA, r)(rho)
+    g, z, _ = T._warm_start(c, op, lo, hi, L)
+    gn = T._cho_solve(L, c + rho[:, None] * op.adj(z))
+    args = (H, c, A, lo, hi, AtA, L, g, z, gn, rho)
+    shipped = K.admm_fused(plan, *[x.clone() for x in args], 50, 1.6, adapt,
+                           1.0)[0]
+    stamped, stamps = K.row_pass_stamps(plan, *[x.clone() for x in args], 50,
+                                        1.6, adapt, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(shipped, stamped)
+    st = stamps.cpu()
+    w = plan.warps
+    assert bool((st[:, 0] > 0).all())
+    assert bool((st[:, 3] >= st[:, 0]).all())
+    assert bool((st[:, 56:56 + w] >= st[:, :1]).all())
+    assert bool((st[:, [2, 4]] >= 0).all() and (st[:, 8:8 + w] >= 0).all())
+    assert bool((st[:, 24:24 + w] >= 0).all()
+                and (st[:, 40:40 + w] >= 0).all())
 
 
 @pytest.mark.cuda

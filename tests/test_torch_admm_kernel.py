@@ -112,32 +112,102 @@ PLAN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("b,n,r,adapt", PLAN_CASES)
-def test_plan_covers_rows_and_frames_within_the_device(b, n, r, adapt):
-    p = K._plan(b, n, r, adapt, **H100)
+def _covers(p, b, n, r, adapt, batched):
+    """The strips cover the rows, every consumer warp has units, and the
+    sizes follow from the shapes."""
     assert p.grid * p.rows >= n > (p.grid - 1) * p.rows      # no empty block
-    assert p.rows >= K.MIN_ROWS
-    assert 1 <= p.warps <= K.WARPS_MAX
-    per = -(-b // p.warps)
-    assert p.warps * per >= b > (p.warps - 1) * per         # no idle warp
+    assert p.seg * p.splits >= p.rows > (p.splits - 1) * p.seg - K.ALIGN
+    assert p.seg >= K.MIN_ROWS and p.rows >= K.MIN_ROWS
+    assert 1 <= p.warps <= K.CONSUMERS_MAX
+    units = b * p.splits
+    per = -(-units // p.warps)
+    assert p.warps * per >= units > (p.warps - 1) * per     # no idle warp
+    assert p.splits == 1 or b * p.splits <= K.CONSUMERS_MAX
     assert p.R in (4, 8, 16, 32) and r <= p.R < 2 * r + 4
     assert p.slot == (3 * r + 1 if adapt else r)
-    assert p.partials == p.grid * b * p.slot
-    assert p.smem_bytes == 4 * p.R * p.rows <= H100["smem_optin"]
+    assert p.partials == p.grid * p.splits * b * p.slot
+
+
+def _aligned(p, b, n, r, adapt, batched):
+    """Every bulk copy's start and size is a whole number of 16-byte
+    units in the padded layout: each strip's and tile's first row in each
+    frame's row of z, w, Aᵀ and the bounds, and each copy's rows."""
+    assert p.ld >= n and p.ld % K.ALIGN == 0 and 4 * K.ALIGN % 16 == 0
+    assert p.ld - n < K.ALIGN
+    tiles = -(-p.seg // p.tile)
+    for blk in {0, 1 % p.grid, p.grid - 1}:
+        i0 = blk * p.rows
+        nrow = min(p.rows, n - i0)
+        for u in range(p.splits):
+            for k in range(tiles):
+                t0 = u * p.seg + k * p.tile
+                tn = min(t0 + p.tile, (u + 1) * p.seg, nrow) - t0
+                if tn <= 0:
+                    continue
+                size = 4 * K._up(tn, K.ALIGN)
+                assert size % 16 == 0 and tn <= p.tile
+                for j in {0, 1 % b, b - 1}:
+                    start = 4 * (j * p.ld + i0 + t0)
+                    assert start % 16 == 0
+                    assert j * p.ld + i0 + t0 + size // 4 <= (j + 1) * p.ld
+        assert (4 * i0) % 16 == 0 and (4 * K._up(nrow, K.ALIGN)) % 16 == 0
+        assert i0 + K._up(nrow, K.ALIGN) <= p.ld
+
+
+def _fits(p, b, n, r, adapt, batched):
+    """The rings, A's strip and the staged bounds fit the device's shared
+    memory, every region 16-byte aligned, with 2 stages a consumer warp at
+    least."""
+    stages = p.warps * p.depth
+    bars = K._bar_bytes(stages, -(-p.seg // p.tile))
+    strip = 4 * p.R * p.rows + (0 if batched else 8 * p.rows)
+    stage = 4 * p.tile * (4 if batched else 2)
+    assert bars % 16 == 0 and strip % 16 == 0 and stage % 16 == 0
+    assert p.depth >= 2 and stages <= K.STAGES_MAX
+    red = 4 * K.RED_FLOATS * p.warps                       # reductions' scratch
+    assert p.smem_bytes == bars + strip + stages * stage + red
+    assert p.smem_bytes <= H100["smem_optin"]
+    assert stages + p.warps > K.STAGES_MAX or \
+        p.smem_bytes + p.warps * stage + 16 > H100["smem_optin"]  # it fills
+
+
+PLAN_CHECKS = [pytest.param(_covers, *c, id="-".join(map(str, c)))
+               for c in PLAN_CASES] + [
+    pytest.param(check, *c, id="-".join([check.__name__[1:]] +
+                                        [str(x) for x in c]))
+    for check in (_aligned, _fits) for c in PLAN_CASES]
+
+
+@pytest.mark.parametrize("check,b,n,r,adapt", PLAN_CHECKS)
+def test_plan_covers_rows_and_frames_within_the_device(check, b, n, r, adapt):
+    """Each check of the plan (:func:`_covers`, :func:`_aligned`,
+    :func:`_fits`) with the bounds shared and per frame."""
+    for batched in (False, True):
+        p = K._plan(b, n, r, adapt, **H100, batched=batched)
+        check(p, b, n, r, adapt, batched)
 
 
 def test_plan_flagship_numbers():
-    """The serving batch on an H100: 13 warps of 4 frames (two warps hold
-    3), one block an SM, 1252 rows a block (80,128 bytes of A, above the
-    48 KB default), 43 sums a (block, frame): 1.14 MB of partials.  One
-    frame: 16 one-warp blocks an SM, 79 rows each."""
+    """The serving batch on an H100: one block an SM, 132 strips of 1256
+    rows (80,384 bytes of A, its columns padded to 16, and 10,048 of the
+    shared bounds), 13 consumer warps of 4 frames (two hold 3), each
+    frame's strip in 3 tiles of 424 rows, a ring of 2 stages of 3,392
+    bytes for each warp and 1,728 bytes of reduction scratch, 43 sums a
+    (block, frame): 1.14 MB of partials.  One frame: its strip split among
+    15 warps, 88 rows each, 4 stages a warp.  Per-frame bounds: tiles of
+    256 rows, to keep 2 stages a warp.  3D rows: 6 equal waves."""
     p = K._plan(50, 165258, 14, True, **H100)
-    assert p == K.Plan(grid=132, rows=1252, warps=13, R=16, slot=43,
-                       partials=132 * 50 * 43, smem_bytes=80128)
+    assert p == K.Plan(grid=132, rows=1256, warps=13, splits=1, seg=1256,
+                       tile=424, depth=2, ld=165264, R=16, slot=43,
+                       partials=132 * 50 * 43,
+                       smem_bytes=448 + 80384 + 10048 + 26 * 3392 + 13 * 1728)
     q = K._plan(1, 165258, 14, True, **H100)
-    assert (q.warps, q.grid, q.rows) == (1, 2092, 79)        # 16 blocks an SM
+    assert (q.warps, q.splits, q.grid, q.seg, q.tile, q.depth) == (
+        15, 15, 132, 88, 88, 4)
+    pb = K._plan(50, 165258, 14, True, **H100, batched=True)
+    assert (pb.tile, pb.depth) == (256, 2)
     s = K._plan(50, 1723599, 14, True, **H100)
-    assert s.rows == 232448 // 64 and s.grid == -(-1723599 // s.rows)
+    assert (s.grid, s.rows) == (790, 2184)                   # 6 equal waves
 
 
 def test_plan_refuses_what_the_kernels_do_not_take():
