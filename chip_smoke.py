@@ -2324,10 +2324,14 @@ def main() -> int:
         return kernel_launches("gp_step", lambda: chol_counted(fn))
 
     def fused_launches(its, max_iter=1000, unroll=4):
-        """The gp_step.cu launches of one fused training whose models took
-        ``its`` iterations: the first build, then one a loop step, the loop
-        running whole blocks of ``unroll`` up to ``max_iter``."""
-        return min(-(-max(its) // unroll) * unroll, max_iter) + 1
+        """The gp_step.cu launches a fused training whose models took
+        ``its`` iterations may make: the first build, then one a loop step,
+        the loop running whole blocks of ``unroll`` up to ``max_iter`` and
+        one block more, enqueued before the host read the stop of the last
+        one (none more where the copy of the stop flags read a flag that
+        block had already turned on)."""
+        steps = min(-(-max(its) // unroll) * unroll, max_iter)
+        return (steps + 1, min(steps + unroll, max_iter) + 1)
 
     def gp_class_flow(gpr_type, engine="device"):
         g = GPR(flag["X_train"], 9, flag["xyz"], Pf, gpr_type)
@@ -2351,7 +2355,7 @@ def main() -> int:
     gp_step_main_launches = 0
     for what, (xr, nr, n, n_gs, its) in gp_runs.items():
         bar = GPR_NRMSE_SLACK * GPR_F64_NRMSE[what]
-        want_gs = 0 if what == "MultiTask" else fused_launches(its)
+        want_gs = (0,) if what == "MultiTask" else fused_launches(its)
         gp_step_main_launches += n_gs
         log(f"  {what}: NRMSE {nr:.6e} (≤ {bar:.6e}; float64 JAX on the CPU "
             f"{GPR_F64_NRMSE[what]:.6e}), chol launches {n}, gp_step "
@@ -2364,9 +2368,9 @@ def main() -> int:
             fail(f"GP {what} NRMSE {nr:.6e} > {bar:.6e}")
         if n < 1:
             fail(f"the GP {what} path never launched csrc/chol.cu")
-        if n_gs != want_gs:
+        if n_gs not in want_gs:
             fail(f"the GP {what} path launched csrc/gp_step.cu {n_gs} times, "
-                 f"not {want_gs}")
+                 f"not one of {want_gs}")
 
     log("phase 7: engine='host' against the port's float64 CPU run of the "
         f"same inputs (|ΔNRMSE| ≤ {HOST_ENGINE_TOL})")
@@ -2561,7 +2565,7 @@ def main() -> int:
     with torch.cuda.stream(side):
         run = vag.fused([t.clone() for t in init], 0.1, 1e-5)
         run.step()
-        fused_graph = exact_gp._Replay(run)
+        fused_graph = exact_gp._Replay(run.step)
         ostep = functools.partial(
             exact_gp._adam_step, functools.partial(
                 exact_gp._grads_at, g1.params, None, vag),
@@ -2569,7 +2573,7 @@ def main() -> int:
         orun = exact_gp._OracleRun(ostep, [t.clone() for t in init],
                                    max_iter=1000)
         orun.step()
-        oracle_graph = exact_gp._Replay(orun)
+        oracle_graph = exact_gp._Replay(orun.step)
         sync()
         fused_ms = loop_ms(fused_graph.step, n=500)
         oracle_ms = loop_ms(oracle_graph.step, n=200)

@@ -29,10 +29,11 @@ builds the next K (:mod:`.gp_step`); every other training steps through
 its oracle or autograd.
 
 While the recorder of :mod:`..utils.logging` is on, the trainer records a
-``gp.adam`` span holding one ``gp.iter`` an Adam iteration, counts each
-read of its stop test on the card in ``host_reads`` and each two-launch
-iteration in ``gp.fused_iters``; a posterior is one ``gp.posterior``
-span.
+``gp.adam`` span holding one ``gp.iter`` an Adam iteration enqueued,
+counts each read of its stop test on the card in ``host_reads`` (and in
+``gp.overlapped_reads`` where a later block was already enqueued) and
+each two-launch iteration in ``gp.fused_iters``; a posterior is one
+``gp.posterior`` span.
 """
 
 from __future__ import annotations
@@ -276,11 +277,11 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     The moments update for every model each substep, frozen ones included,
     as optax's state does there.
 
-    ``unroll`` substeps run between host reads of ``all(converged)``: the
-    loop reads the device once every ``unroll`` iterations, as the JAX
-    ``while_loop`` tests its condition.  Substeps past convergence are
-    masked no-ops, and substeps past ``max_iter`` are skipped (they would
-    be no-ops), so results do not depend on ``unroll``.
+    ``unroll`` substeps make a block, and the host reads ``all(converged)``
+    once a block, as the JAX ``while_loop`` tests its condition.  Substeps
+    past convergence are masked no-ops, and substeps past ``max_iter`` are
+    skipped (they would be no-ops), so results do not depend on ``unroll``
+    nor on which block's flags the host reads (:class:`_StopTest`).
 
     ``value_and_grad(params) -> (losses (B,), grads dict)`` replaces
     autograd of ``sum(loss_fn)`` (the closed-form oracles below), and
@@ -293,9 +294,11 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     Where it says that its iteration can be captured (``value_and_grad
     .capturable``: the oracles below on the kernel path, a CUDA fp32 batch
     with p ≤ 128, whose every operation launches without a host read or
-    an allocation of a library's own), the iteration after the first
-    block is a replay of one captured as a CUDA graph, on a side stream
-    (:class:`_Replay`).  ``verbose`` is accepted for signature parity.
+    an allocation of a library's own), each whole block after the first
+    is one replay of a block captured as a CUDA graph, on a side stream
+    (:class:`_Replay`), and the host reads each block's stop flags only
+    once the next block is enqueued, so the card never waits for the host
+    to decide.  ``verbose`` is accepted for signature parity.
 
     ``stop_axis`` (a :class:`..parallel._comm.Axis`) makes the stop test
     collective: each rank trains its own models, and the loop runs until
@@ -305,19 +308,14 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
     del verbose
     params = [t.detach().clone() for t in tree_leaves(params0)]
 
-    def all_stopped(conv) -> bool:
-        if conv.is_cuda:
-            _log.count("host_reads")
-        done = bool(torch.all(conv))
-        return done if stop_axis is None else stop_axis.all(done)
-
-    # on the card the closed-form oracle's iteration is replayed as a CUDA
-    # graph after a first block run eagerly: the ~120 launches an eager
-    # iteration enqueues take the host ~10× the card's time for them
+    # on the card the closed-form oracle's iterations are replayed as a
+    # CUDA graph, a block at a time, after a first block run eagerly: the
+    # ~120 launches an eager iteration enqueues take the host ~10× the
+    # card's time for them
     capture = getattr(value_and_grad, "capturable", False)
     fused = getattr(value_and_grad, "fused", None)
     rec = _log.recorder()        # taken once: each iteration's span inline
-    j = 0
+    j, replay = 0, None
     with _side_stream(params[0]) if capture else contextlib.nullcontext():
         run = fused(params, lr, rel_error) if fused is not None else \
             _OracleRun(functools.partial(
@@ -325,21 +323,103 @@ def adam_early_stop(loss_fn: Callable, params0: Dict, lr: float = 0.1,
                 functools.partial(_grads_at, params0, loss_fn, value_and_grad),
                 lr=lr, rel_error=rel_error), params,
                 max_iter if capture else None)
-        step = run.step
-        while j < max_iter and not all_stopped(run.conv):
-            for _ in range(unroll):
-                if j >= max_iter:
-                    break
+        stop = _StopTest(run.conv, stop_axis, behind=capture)
+        while j < max_iter and not stop.stopped():
+            n = min(unroll, max_iter - j)
+            # one gp.iter span an iteration enqueued; a replay enqueues its
+            # whole block, so its first span holds it and the rest are empty
+            steps = [replay.step] + [_enqueued] * (n - 1) \
+                if replay is not None and n == unroll else [run.step] * n
+            for step in steps:
                 if rec is not None:
                     at = rec.begin("gp.iter")
                 step()
-                j += 1
                 if rec is not None:
                     rec.end(at)
-            if capture:                  # after the first block
-                step, capture = _Replay(run).step, False
+            j += n
+            stop.block_done()
+            if capture and replay is None and max_iter - j >= unroll:
+                replay = _Replay(functools.partial(_steps, run.step, unroll))
     leaves, losses, iters = run.result()
     return TrainResult(_unflatten_like(params0, leaves), losses, iters)
+
+
+def _steps(step: Callable, n: int) -> None:
+    """``n`` calls of ``step``: a block of iterations, as one callable."""
+    for _ in range(n):
+        step()
+
+
+def _enqueued() -> None:
+    """An iteration that its block's replay has already enqueued."""
+
+
+class _StopTest:
+    """The stop test of :func:`adam_early_stop`'s loop: whether every model
+    (of every rank of ``axis``) has stopped, read once a block.
+
+    ``behind`` (a loop that captures, on the card): after each block the
+    host records an event, behind which a stream of the test's own copies
+    the stop flags ``conv`` into a pinned host slot, and the test reads the
+    block before the newest one.  So the host enqueues block k + 1 before
+    it waits for block k, and the card has a block queued while the host
+    decides; the block enqueued after the stop is a masked no-op
+    (``_adam_step``'s and ``csrc/gp_step.cu``'s frozen models), which
+    leaves parameters, last losses and iteration counts as they are.  The
+    copy runs beside block k + 1, not between the blocks, so the loop's
+    stream goes from block to block without a copy's turnaround; it may
+    therefore read a flag that block k + 1 has already turned on, but a
+    flag only turns on, so the host then stops one block sooner, after
+    iterations already enqueued, and the results are the same.  Two
+    slots, block k's in slot k mod 2, each read only once its copy's event
+    has passed: block k + 1's copy, which may be in flight while the host
+    reads, lands in the other one.  Each read is counted in ``host_reads``
+    and ``gp.overlapped_reads``.
+
+    Otherwise the test reads ``all(conv)`` before each block, which waits
+    for the queue on the card (a read counted in ``host_reads``) and costs
+    nothing on the CPU."""
+
+    def __init__(self, conv: torch.Tensor, axis, behind: bool):
+        self.conv, self.axis, self.blocks = conv, axis, 0
+        self.slots = None
+        if behind:
+            self.slots = [torch.empty(conv.shape, dtype=torch.bool,
+                                      pin_memory=conv.is_cuda)
+                          for _ in range(2)]
+            self.ends = [torch.cuda.Event() for _ in range(2)]
+            self.copied = [torch.cuda.Event() for _ in range(2)]
+            # high priority: never the loop's stream, which is a
+            # low-priority one of torch's pool
+            self.stream = torch.cuda.Stream(conv.device, priority=-1)
+            conv.record_stream(self.stream)
+
+    def block_done(self) -> None:
+        """After each block is enqueued: behind, its event, and the copy of
+        its flags into its slot on the test's stream."""
+        if self.slots is not None:
+            slot = self.blocks % 2
+            self.ends[slot].record()
+            with torch.cuda.stream(self.stream):
+                self.stream.wait_event(self.ends[slot])
+                self.slots[slot].copy_(self.conv, non_blocking=True)
+                self.copied[slot].record()
+        self.blocks += 1
+
+    def stopped(self) -> bool:
+        if self.slots is None:
+            if self.conv.is_cuda:
+                _log.count("host_reads")
+            done = bool(torch.all(self.conv))
+        elif self.blocks < 2:
+            return False      # no block before the newest one to read
+        else:
+            slot = self.blocks % 2          # the block before the newest
+            self.copied[slot].synchronize()
+            _log.count("host_reads")
+            _log.count("gp.overlapped_reads")
+            done = bool(torch.all(self.slots[slot]))
+        return done if self.axis is None else self.axis.all(done)
 
 
 class _OracleRun:
@@ -394,17 +474,18 @@ class _OracleRun:
 
 
 class _Replay:
-    """``run.step`` captured once as a CUDA graph on the current stream:
-    each :meth:`step` replays it, advancing the run in place, and adds the
-    counts that the capture tallied (the kernels' launches,
-    ``gp.fused_iters``; :func:`..utils.logging.capture_tally`)."""
+    """``block()`` (a run's iterations, ``run.step`` or a block of them)
+    captured once as a CUDA graph on the current stream: each :meth:`step`
+    replays it, advancing the run in place, and adds the counts that the
+    capture tallied (the kernels' launches, ``gp.fused_iters``;
+    :func:`..utils.logging.capture_tally`)."""
 
-    def __init__(self, run):
+    def __init__(self, block: Callable[[], None]):
         self.graph = torch.cuda.CUDAGraph()
         with _log.capture_tally() as self.tally:
             self.graph.capture_begin()
             try:
-                run.step()
+                block()
             finally:
                 self.graph.capture_end()
 

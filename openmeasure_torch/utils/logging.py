@@ -38,6 +38,12 @@ The spans and counters of the port:
   counted where they are made (each ``torch.linalg.eigh`` on the card,
   whose error check reads its ``info``; each stop test of the Adam loop
   on the card, one a block of ``unroll`` iterations).
+- counter ``gp.overlapped_reads``: the stop tests of the Adam loop that
+  the host read while a later block was already enqueued, so that the
+  card kept working while the host waited (``gp/exact_gp.py``'s
+  ``_StopTest``): how often that schedule engages.  On the card, where
+  the loop captures, it equals the loop's stop tests in ``host_reads``;
+  elsewhere it stays 0.
 - counter ``boxls.kernel_solves``: the ADMM solves that ran the CUDA
   kernel pair of ``linalg/admm_cuda.py`` instead of the loop.
 - counter ``gp.fused_iters``: the Adam iterations of ``gp/exact_gp.py``'s

@@ -230,22 +230,24 @@ def test_gp_paths_on_card_go_through_the_kernel(card):
     pytest.param("SingleTask", "ConstantMean", id="SingleTask-fused")])
 def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type,
                                               mean):
-    """On the card the Adam loop replays its iteration as a CUDA graph
-    after a first eager block: the trained state equals, bit for bit, the
-    same iterations run eagerly (each replay's step run as plain
-    launches), and the recorder counts the replays' launches of
-    ``csrc/chol.cu``, one an iteration.  A LinearMean and the MultiTask
-    model keep the oracle's step; a ConstantMean takes the fused step of
-    ``csrc/gp_step.cu``, which launches once more than there are
-    iterations (the first build)."""
+    """On the card the Adam loop replays each block of 4 iterations as a
+    CUDA graph after a first eager block: the trained state equals, bit
+    for bit, the same iterations run eagerly (each replay's block run as
+    plain launches), and the recorder counts the replays' launches of
+    ``csrc/chol.cu``, one an iteration, with the block enqueued before
+    the host read the stop of the last one (or none more, where the copy
+    of the flags read a flag that block had already turned on).  A
+    LinearMean and the MultiTask model keep the oracle's step; a
+    ConstantMean takes the fused step of ``csrc/gp_step.cu``, which
+    launches once more than there are iterations (the first build)."""
     from openmeasure_torch import GPR
     from openmeasure_torch.datasets.synthetic import make_flame_dataset
     from openmeasure_torch.gp import exact_gp as E
     from openmeasure_torch.gp import kernels as GK
 
     class Eager:
-        def __init__(self, run):
-            self.step = run.step
+        def __init__(self, block):
+            self.step = block
 
     d = make_flame_dataset(n_cells=2000, n_features=3, m_train=20, m_test=3,
                            dtype=np.float32)
@@ -267,10 +269,11 @@ def test_trainer_graph_replays_the_eager_step(card, monkeypatch, gpr_type,
         assert torch.equal(a, b)
     assert torch.equal(g_graph._final_loss, g_eager._final_loss)
     assert torch.equal(g_graph._iterations, g_eager._iterations)
-    assert counted == counted_eager
-    steps = min(-(-int(g_graph._iterations.max()) // 4) * 4, 203)
-    assert counted["chol.kernel_launches"] == steps
+    blockwise = min(-(-int(g_graph._iterations.max()) // 4) * 4, 203)
     fused = mean == "ConstantMean"
-    assert counted.get("gp.fused_iters", 0) == (steps if fused else 0)
-    assert counted.get("gp_step.kernel_launches", 0) == \
-        (steps + 1 if fused else 0)
+    for c in (counted, counted_eager):
+        steps = c["chol.kernel_launches"]
+        assert steps in (blockwise, min(blockwise + 4, 203))
+        assert c.get("gp.fused_iters", 0) == (steps if fused else 0)
+        assert c.get("gp_step.kernel_launches", 0) == \
+            (steps + 1 if fused else 0)

@@ -17,6 +17,7 @@ count are exact.  A CUDA graph's replays equal the same iterations run as
 plain launches bit for bit (no float atomics, one order for every sum).
 """
 
+import functools
 import itertools
 
 import numpy as np
@@ -71,7 +72,7 @@ def _oracle(card, profile, scaled, ard, mean_cls, B=14, p=41, d=3, seed=0):
     leaves = [x + 0.3 * torch.as_tensor(rng.standard_normal(
         (B,) + tuple(x.shape)), **like) for x in E.tree_leaves(p0)]
     vag = E.make_single_task_value_and_grad(mean, kern, lik, X, Y)
-    return vag, leaves
+    return vag, leaves, p0
 
 
 def _close(got, want, what):
@@ -86,7 +87,7 @@ def test_kernel_matches_its_plain_version(card, profile, scaled, ard, mean):
     """One build and one step of the kernel against the plain version from
     the same state, the step from the same K⁻¹ and logdet; two models
     start frozen."""
-    vag, leaves = _oracle(card, profile, scaled, ard, mean)
+    vag, leaves, _ = _oracle(card, profile, scaled, ard, mean)
     assert vag.fused is not None
     with L.recording() as rec:
         kern = vag.fused([t.clone() for t in leaves], 0.1, 1e-5)
@@ -114,8 +115,8 @@ def test_kernel_matches_its_plain_version(card, profile, scaled, ard, mean):
 def test_kernel_at_p_128_and_many_lengthscales(card):
     """The largest p (64 KB of dynamic shared memory) and LS_MAX ARD
     lengthscales."""
-    vag, leaves = _oracle(card, 2.5, True, True, K.ConstantMean, B=3, p=128,
-                          d=S.LS_MAX, seed=5)
+    vag, leaves, _ = _oracle(card, 2.5, True, True, K.ConstantMean, B=3,
+                             p=128, d=S.LS_MAX, seed=5)
     kern = vag.fused([t.clone() for t in leaves], 0.1, 1e-5)
     plain = vag.fused([t.clone() for t in leaves], 0.1, 1e-5)
     S._build_plain(plain)
@@ -141,7 +142,8 @@ def test_bias_corrections_on_the_card_equal_the_hosts(card):
 
 @pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
-    vag, leaves = _oracle(card, 2.5, False, False, K.ConstantMean, B=2, p=9)
+    vag, leaves, _ = _oracle(card, 2.5, False, False, K.ConstantMean, B=2,
+                             p=9)
     run = vag.fused([t.clone() for t in leaves], 0.1, 1e-5)
     kinv, logdet = TCC.chol_inv_logdet_cuda(run.kj)
     with pytest.raises(ValueError, match="K⁻¹ and logdet"):
@@ -176,8 +178,8 @@ def test_fused_graph_replays_the_eager_iterations(card, monkeypatch):
     d = _flame()
     g_graph = _gpr(d)
     g_again = _gpr(d)
-    monkeypatch.setattr(E, "_Replay", lambda run: type("Eager", (), {
-        "step": staticmethod(run.step)})())
+    monkeypatch.setattr(E, "_Replay", lambda block: type("Eager", (), {
+        "step": staticmethod(block)})())
     g_eager = _gpr(d)
     for other in (g_eager, g_again):
         for a, b in zip(E.tree_leaves(g_graph.params),
@@ -190,8 +192,9 @@ def test_fused_graph_replays_the_eager_iterations(card, monkeypatch):
 @pytest.mark.cuda
 def test_train_at_flame2d_gpr_widths_is_two_launches_an_iteration(card):
     """``GPR.train`` at the flame2d_gpr widths (14 modes on 41 points):
-    one launch of each kernel an iteration, plus the first build; a traced
-    replay of the captured iteration holds exactly two kernels."""
+    one launch of each kernel an iteration enqueued, plus the first build;
+    a traced replay of the trainer's captured block of 4 iterations holds
+    2 × 4 kernels of exactly two names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     d = _flame(n_cells=18362, m_train=41)
@@ -209,9 +212,11 @@ def test_train_at_flame2d_gpr_widths_is_two_launches_an_iteration(card):
     with torch.cuda.stream(side):
         run = vag.fused(E.tree_leaves(g.params), 0.1, 1e-5)
         run.step()
-        graph = E._Replay(run)
+        graph = E._Replay(functools.partial(E._steps, run.step, 4))
         graph.step()
     torch.cuda.synchronize()
+    assert graph.tally == {"chol.kernel_launches": 4,
+                           "gp_step.kernel_launches": 4, "gp.fused_iters": 4}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
             graph.step()
@@ -223,7 +228,7 @@ def test_train_at_flame2d_gpr_widths_is_two_launches_an_iteration(card):
     names = set(kernels)
     assert len(names) == 2 and any("chol" in n for n in names) \
         and any("gp_step" in n for n in names), names
-    assert 0 < len(kernels) <= 40, len(kernels)
+    assert 0 < len(kernels) <= 20 * 2 * 4, len(kernels)
 
 
 @pytest.mark.cuda
@@ -259,3 +264,72 @@ def test_fused_iters_counts_the_fused_route_only(card, spec):
     assert steps >= int(res.iterations.max()) > 0
     want = steps if spec == "ConstantMean" else 0
     assert rec.counters.get("gp.fused_iters", 0) == want
+
+
+def _blockwise(vag, leaves, p0, max_iter, rel_error, unroll=4):
+    """The training stepped one iteration at a time, eagerly, with
+    ``all(converged)`` read before every block of ``unroll``, on the
+    trainer's side stream: ``((leaves, losses, iterations), iterations
+    enqueued)``."""
+    leaves = [t.clone() for t in leaves]
+    with E._side_stream(leaves[0]):
+        if vag.fused is not None:
+            run = vag.fused(leaves, 0.1, rel_error)
+        else:
+            run = E._OracleRun(functools.partial(
+                E._adam_step, functools.partial(E._grads_at, p0, None, vag),
+                lr=0.1, rel_error=rel_error), leaves, max_iter)
+        j = 0
+        while j < max_iter and not bool(torch.all(run.conv)):
+            for _ in range(min(unroll, max_iter - j)):
+                run.step()
+                j += 1
+    torch.cuda.synchronize()
+    return run.result(), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean", [K.ConstantMean, K.LinearMean],
+                         ids=["fused", "oracle"])
+@pytest.mark.parametrize("max_iter,rel_error", [(10, 0.0), (60, 2e-3)],
+                         ids=["no-stop", "stops"])
+def test_pipelined_stop_matches_blockwise_training(card, mean, max_iter,
+                                                   rel_error):
+    """The trainer's schedule on the card (each block of 4 one replay,
+    the next block enqueued before the host reads the last one's stop
+    flags) trains the models bit for bit as the same training stepped
+    eagerly with the flags read before every block.  It enqueues no
+    iteration past ``max_iter`` and one block more than that training
+    (or up to ``max_iter``; none more where the copy of the flags read a
+    flag that the next block had already turned on), and every stop test
+    it reads overlaps a block already enqueued."""
+    vag, leaves, p0 = _oracle(card, 2.5, True, False, mean)
+    assert (vag.fused is not None) == (mean is K.ConstantMean)
+    params0 = E._unflatten_like(p0, leaves)
+    with L.recording() as rec:
+        res = E.adam_early_stop(None, params0, lr=0.1, max_iter=max_iter,
+                                rel_error=rel_error, value_and_grad=vag)
+    torch.cuda.synchronize()
+    (want, loss, iters), enqueued = _blockwise(vag, leaves, params0,
+                                               max_iter, rel_error)
+    for a, b in zip(E.tree_leaves(res.params), want):
+        assert torch.equal(a, b)
+    assert torch.equal(res.loss, loss)
+    assert torch.equal(res.iterations, iters)
+    slowest = int(iters.max())
+    if max_iter == 10:
+        assert iters.tolist() == [10] * 14
+    else:            # models stop on different iterations, before max_iter
+        assert len(set(iters.tolist())) > 1 and slowest + 8 <= max_iter
+    steps = sum(s.name == "gp.iter" for s in rec.spans)
+    assert steps in (enqueued, min(enqueued + 4, max_iter))
+    assert slowest <= enqueued <= steps <= max_iter
+    if max_iter == 10:
+        assert steps == 10
+    blocks = -(-steps // 4)
+    reads = blocks - 1 if steps < max_iter else max(blocks - 2, 0)
+    assert rec.counters["gp.overlapped_reads"] == \
+        rec.counters["host_reads"] == reads
+    assert rec.counters["chol.kernel_launches"] == steps
+    assert rec.counters.get("gp.fused_iters", 0) == \
+        (steps if vag.fused is not None else 0)

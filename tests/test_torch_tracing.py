@@ -14,6 +14,8 @@ so on a machine with a card it runs as::
     python -m pytest tests/test_torch_tracing.py --noconftest -q
 """
 
+import contextlib
+import functools
 import types
 import warnings
 
@@ -22,6 +24,8 @@ import pytest
 import torch
 
 from openmeasure_torch import GPR, SPR, SoftSensor
+from openmeasure_torch.gp import exact_gp as E
+from openmeasure_torch.gp import kernels as GK
 from openmeasure_torch.pipelines import spr_end_to_end
 from openmeasure_torch.utils import logging as tlog
 
@@ -298,9 +302,12 @@ def test_fit_host_reads_on_card():
 @pytest.mark.parametrize("max_iter, rel_error", [(10, 0.0), (1000, 1e-5)])
 def test_gp_training_host_reads_on_card(max_iter, rel_error):
     """On the card, a GP training's ``host_reads`` are its Adam loop's
-    stop tests, one a block of 4 iterations and one more where every
-    model stopped before ``max_iter``: as many as the sync debug mode
-    warns of; ``chol.kernel_launches`` is one an iteration, and a
+    stop tests, each read one block behind the newest (so each also a
+    ``gp.overlapped_reads``): none before the second block is enqueued,
+    then one before each further block and one more where every model
+    stopped before ``max_iter``.  None drains the stream: the sync debug
+    mode warns of no synchronization in the whole training.
+    ``chol.kernel_launches`` is one an iteration enqueued, and a
     ``predict`` launches none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: host reads are reads of the card")
@@ -317,10 +324,134 @@ def test_gp_training_host_reads_on_card(max_iter, rel_error):
         torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     steps = sum(s.name == "gp.iter" for s in rec.spans)
-    slowest = int(gpr._iterations.max())
-    reads = -(-steps // 4) + (slowest < max_iter)
-    assert rec.counters["host_reads"] == len(syncs) == reads
+    blocks = -(-steps // 4)
+    reads = blocks - 1 if steps < max_iter else max(blocks - 2, 0)
+    assert rec.counters["host_reads"] == \
+        rec.counters["gp.overlapped_reads"] == reads
+    assert syncs == []
     assert rec.counters["chol.kernel_launches"] == steps
     with tlog.recording() as rec:
         gpr.predict(Pt)
     assert "chol.kernel_launches" not in rec.counters
+
+
+def _adam_problem(B=6, p=20, d=3, seed=0):
+    """A float64 CPU batch of B single-task GPs (constant mean, scaled
+    Matérn-2.5) on p points, parameters scattered about their initial
+    values: ``(loss_fn, params0, value_and_grad)``."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.uniform(-1.5, 1.5, (p, d)))
+    Y = torch.as_tensor(rng.standard_normal((B, p)))
+    mean, kern = GK.ConstantMean(), GK.ScaleKernel(GK.MaternKernel(2.5))
+    lik = GK.GaussianLikelihood()
+    like = dict(dtype=torch.float64)
+    p0 = {"mean": mean.init_params(d, **like),
+          "kernel": kern.init_params(d, **like),
+          "likelihood": lik.init_params(**like)}
+    params0 = E.tree_map(lambda x: x + 0.3 * torch.as_tensor(
+        rng.standard_normal((B,) + tuple(x.shape))), p0)
+    return (E.make_single_task_loss(mean, kern, lik, X, Y), params0,
+            E.make_single_task_value_and_grad(mean, kern, lik, X, Y))
+
+
+def _blockwise(loss_fn, params0, vag, max_iter, rel_error, table):
+    """The Adam loop stepped eagerly with ``all(converged)`` read before
+    every block of 4 (the bias corrections from the card's table where
+    ``table``): ``((leaves, losses, iterations), iterations enqueued)``."""
+    run = E._OracleRun(functools.partial(
+        E._adam_step, functools.partial(E._grads_at, params0, loss_fn, vag),
+        lr=0.1, rel_error=rel_error),
+        [t.clone() for t in E.tree_leaves(params0)],
+        max_iter if table else None)
+    j = 0
+    while j < max_iter and not bool(torch.all(run.conv)):
+        for _ in range(min(4, max_iter - j)):
+            run.step()
+            j += 1
+    return run.result(), j
+
+
+def _same_training(res, want):
+    (leaves, loss, iters) = want
+    for a, b in zip(E.tree_leaves(res.params), leaves):
+        assert torch.equal(a, b)
+    assert torch.equal(res.loss, loss)
+    assert torch.equal(res.iterations, iters)
+
+
+LOOPS = [pytest.param(10, 0.0, id="no-stop"),
+         pytest.param(60, 2e-3, id="stops")]
+
+
+@pytest.mark.parametrize("max_iter, rel_error", LOOPS)
+def test_gp_loop_on_the_cpu_reads_as_before(max_iter, rel_error):
+    """On the CPU the Adam loop keeps its schedule: ``all(converged)``
+    read before every block of 4, one ``gp.iter`` span an iteration, no
+    ``gp.overlapped_reads`` (nor ``host_reads``: no card is read), and the
+    results of the loop stepped block by block."""
+    loss_fn, params0, vag = _adam_problem()
+    with tlog.recording() as rec:
+        res = E.adam_early_stop(loss_fn, params0, max_iter=max_iter,
+                                rel_error=rel_error, value_and_grad=vag)
+    want, enqueued = _blockwise(loss_fn, params0, vag, max_iter, rel_error,
+                                table=False)
+    _same_training(res, want)
+    iters = res.iterations.tolist()
+    if max_iter == 10:
+        assert iters == [10] * 6
+    else:            # models stop on different iterations, before max_iter
+        assert len(set(iters)) > 1 and max(iters) + 8 <= max_iter
+    assert sum(s.name == "gp.iter" for s in rec.spans) == enqueued
+    assert rec.counters == {}
+
+
+@pytest.mark.parametrize("max_iter, rel_error", LOOPS)
+def test_gp_loop_reads_one_block_behind_where_it_captures(
+        monkeypatch, max_iter, rel_error):
+    """The schedule of a loop that captures (on the card), run on the CPU
+    with stand-ins for what only the card has (the streams, a block's CUDA
+    graph, the events): the host enqueues the next block before it
+    reads the last one's stop flags, so it enqueues one block more than
+    the loop that reads before every block, never past ``max_iter``;
+    every stop test is an overlapped read; the trained models are the
+    same, bit for bit."""
+    class Event:        # the CPU's copies are done once enqueued
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+    class Stream:
+        def __init__(self, device, priority=0):
+            pass
+
+        def wait_event(self, event):
+            pass
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda self, stream: None)
+    monkeypatch.setattr(E, "_side_stream",
+                        lambda like: contextlib.nullcontext())
+    monkeypatch.setattr(E, "_Replay",
+                        lambda block: types.SimpleNamespace(step=block))
+    loss_fn, params0, vag = _adam_problem()
+    captures = functools.partial(vag)
+    captures.capturable = True
+    with tlog.recording() as rec:
+        res = E.adam_early_stop(loss_fn, params0, max_iter=max_iter,
+                                rel_error=rel_error, value_and_grad=captures)
+    want, enqueued = _blockwise(loss_fn, params0, vag, max_iter, rel_error,
+                                table=True)
+    _same_training(res, want)
+    steps = sum(s.name == "gp.iter" for s in rec.spans)
+    assert steps == min(enqueued + 4, max_iter)
+    if max_iter == 60:
+        assert enqueued + 4 < max_iter      # the spare block was enqueued
+    blocks = -(-steps // 4)
+    reads = blocks - 1 if steps < max_iter else max(blocks - 2, 0)
+    assert rec.counters == {"host_reads": reads,
+                            "gp.overlapped_reads": reads}
